@@ -1,0 +1,86 @@
+"""Carry the JAX package's parameters across to the port.
+
+Each function takes plain numpy arrays (or Python scalars) keyed by the JAX
+package's field names and returns the port's counterpart, so both packages
+compute on identical parameters:
+
+    model_from_numpy({f.name: np.asarray(getattr(m, f.name)) for f in fields(m)})
+    info_from_numpy(dataclasses.asdict(info))
+    settings_from_numpy(dataclasses.asdict(settings))
+    weights_from_numpy(Q, R)
+    refs_from_numpy({name: np.asarray(a) for name, a in refs._asdict().items()})
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .model.centroidal import CentroidalModelInfo
+from .model.robot_model import LEAF_FIELDS, RobotModel, ancestor_mask_from_parents
+from .ocp.problem import NodeRefs, OcpSettings
+
+
+def _tensor(a, dtype, device):
+    return torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype, device=device)
+
+
+def _names(a) -> tuple[str, ...]:
+    return tuple(str(s) for s in np.asarray(a).reshape(-1).tolist())
+
+
+def _ints(a) -> tuple[int, ...]:
+    return tuple(int(i) for i in np.asarray(a).reshape(-1).tolist())
+
+
+def model_from_numpy(fields: dict, dtype=torch.float64, device=None) -> RobotModel:
+    """RobotModel from the JAX RobotModel's fields as numpy arrays.
+
+    The ancestor mask is rebuilt from ``joint_parent_body`` (numpy's bytes
+    arrays drop trailing zero bytes, so the reference's packed mask does not
+    survive ``np.asarray``)."""
+    parents = _ints(fields["joint_parent_body"])
+    return RobotModel(
+        name=str(np.asarray(fields["name"]).item()),
+        joint_names=_names(fields["joint_names"]),
+        frame_names=_names(fields["frame_names"]),
+        joint_parent_body=parents,
+        joint_type=_ints(fields["joint_type"]),
+        frame_body=_ints(fields["frame_body"]),
+        ancestor_joints=ancestor_mask_from_parents(parents).tobytes(),
+        **{f: _tensor(fields[f], dtype, device) for f in LEAF_FIELDS},
+    )
+
+
+def model_to_numpy(model: RobotModel) -> dict:
+    """Inverse of :func:`model_from_numpy` (round-trip checks)."""
+    out = {f.name: getattr(model, f.name) for f in dataclasses.fields(model)}
+    for f in LEAF_FIELDS:
+        out[f] = out[f].detach().cpu().numpy()
+    return out
+
+
+def info_from_numpy(fields: dict) -> CentroidalModelInfo:
+    return CentroidalModelInfo(
+        nj=int(fields["nj"]),
+        contact_frame_ids=_ints(fields["contact_frame_ids"]),
+        robot_mass=float(fields["robot_mass"]),
+        model_type=int(fields.get("model_type", 0)),
+        q_j_nominal=tuple(float(v) for v in np.asarray(fields.get("q_j_nominal", ())).reshape(-1)),
+    )
+
+
+def settings_from_numpy(fields: dict) -> OcpSettings:
+    """OcpSettings from ``dataclasses.asdict`` of the reference settings."""
+    kwargs = dict(fields)
+    kwargs["linesearch_alphas"] = tuple(float(a) for a in kwargs.get("linesearch_alphas", ()))
+    return OcpSettings(**kwargs)
+
+
+def weights_from_numpy(Q, R, dtype=torch.float64, device=None):
+    return _tensor(Q, dtype, device), _tensor(R, dtype, device)
+
+
+def refs_from_numpy(fields: dict, dtype=torch.float64, device=None) -> NodeRefs:
+    return NodeRefs(**{name: _tensor(fields[name], dtype, device) for name in NodeRefs._fields})

@@ -1,0 +1,166 @@
+"""Centroidal model: momentum matrix, flow map, state access
+(model/centroidal.py counterpart, FullCentroidalDynamics).
+
+    state  x = [h_com/m (6: v_com, L/m), basePose (6: xyz + euler-zyx), q_j (nj)]
+    input  u = [F_contact (3*n_c, world frame), v_joints (nj)]
+
+The centroidal momentum matrix A(q) maps the generalized velocity (Euler-rate
+convention) to [linear; angular] momentum about the whole-body com:
+
+    A(q) = sum_b [ m_b Jv_cb ; R_b I_b R_b^T Jw_b + m_b skew(c_b - c) Jv_cb ]
+
+Every function takes any number of leading batch dimensions.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops.contract import mv
+from ..ops.linalg import inv6_block
+from .kinematics import (
+    body_com_positions,
+    forward_kinematics,
+    frame_position,
+    stacked_point_jacobians,
+)
+from .robot_model import RobotModel
+
+GRAVITY_VECTOR = (0.0, 0.0, -9.81)
+
+
+@dataclasses.dataclass(frozen=True)
+class CentroidalModelInfo:
+    """Static problem-size metadata (reference: CentroidalModelInfo).
+
+    model_type 0 = FullCentroidalDynamics, 1 = SingleRigidBodyDynamics
+    (kept for conversion; the port implements model_type 0)."""
+
+    nj: int
+    contact_frame_ids: tuple[int, ...]
+    robot_mass: float
+    model_type: int = 0
+    q_j_nominal: tuple[float, ...] = ()
+
+    @property
+    def num_contacts(self) -> int:
+        return len(self.contact_frame_ids)
+
+    @property
+    def state_dim(self) -> int:
+        return 12 + self.nj
+
+    @property
+    def input_dim(self) -> int:
+        return 3 * self.num_contacts + self.nj
+
+    @property
+    def generalized_dim(self) -> int:
+        return 6 + self.nj
+
+
+def make_info(
+    model: RobotModel,
+    contact_frame_names: list[str],
+    model_type: int = 0,
+    q_j_nominal: tuple[float, ...] = (),
+) -> CentroidalModelInfo:
+    if model_type == 1 and len(q_j_nominal) != model.nj:
+        raise ValueError("SingleRigidBodyDynamics needs a nominal joint configuration")
+    return CentroidalModelInfo(
+        nj=model.nj,
+        contact_frame_ids=tuple(model.frame_index(n) for n in contact_frame_names),
+        robot_mass=float(model.total_mass),
+        model_type=model_type,
+        q_j_nominal=tuple(float(v) for v in q_j_nominal),
+    )
+
+
+def require_full_centroidal(info: CentroidalModelInfo) -> None:
+    if info.model_type != 0:
+        raise NotImplementedError(
+            "the port implements FullCentroidalDynamics (model_type 0) only"
+        )
+
+
+def centroidal_momentum_matrix_info(model: RobotModel, info: CentroidalModelInfo, q):
+    require_full_centroidal(info)
+    return centroidal_momentum_matrix(model, q)
+
+
+# ---------------------------------------------------------------- access
+def get_normalized_momentum(x):
+    return x[..., 0:6]
+
+
+def get_generalized_coordinates(x):
+    """q = [base pos, euler-zyx, q_j] from the centroidal state."""
+    return x[..., 6:]
+
+
+def get_contact_forces(u, info: CentroidalModelInfo):
+    return u[..., : 3 * info.num_contacts].reshape(*u.shape[:-1], info.num_contacts, 3)
+
+
+def get_joint_velocities(u, info: CentroidalModelInfo):
+    return u[..., 3 * info.num_contacts :]
+
+
+# ---------------------------------------------------------------- CMM
+def rotate_inertia(R, I):
+    """R_b I_b R_b^T: R (..., nb, 3, 3), I (nb, 3, 3) -> (..., nb, 3, 3)."""
+    return R @ I @ R.transpose(-1, -2)
+
+
+def centroidal_momentum_matrix(model: RobotModel, q):
+    """A(q): (..., 6, nv) from stacked body-com Jacobians."""
+    kin = forward_kinematics(model, q)
+    coms = body_com_positions(model, kin)  # (..., nb, 3)
+    com = (model.body_mass[:, None] * coms).sum(-2) / model.total_mass
+    J = stacked_point_jacobians(model, kin, coms, model.ancestor_mask())  # (..., nb, 6, nv)
+    Jv, Jw = J[..., :3, :], J[..., 3:, :]
+    I_w = rotate_inertia(kin.R, model.body_inertia)
+    m_b = model.body_mass[:, None, None]
+    A_lin = (m_b * Jv).sum(-3)
+    rel = coms - com[..., None, :]  # (..., nb, 3)
+    cross_term = torch.linalg.cross(
+        rel[..., None, :].expand(Jv.shape[:-2] + (Jv.shape[-1], 3)), Jv.transpose(-1, -2)
+    ).transpose(-1, -2)  # (..., nb, 3, nv)
+    A_ang = (I_w @ Jw).sum(-3) + (m_b * cross_term).sum(-3)
+    return torch.cat([A_lin, A_ang], dim=-2)
+
+
+def generalized_velocity_from_state_input(model: RobotModel, info: CentroidalModelInfo, x, u):
+    """v = [v_base; v_j] with v_base = A_b^{-1} (m h_norm - A_j v_j)."""
+    q = get_generalized_coordinates(x)
+    h = info.robot_mass * get_normalized_momentum(x)
+    v_j = get_joint_velocities(u, info)
+    A = centroidal_momentum_matrix_info(model, info, q)
+    A_b, A_j = A[..., :6], A[..., 6:]
+    v_b = mv(inv6_block(A_b), h - mv(A_j, v_j))
+    return torch.cat([v_b, v_j], dim=-1)
+
+
+def normalized_momentum_rate(model: RobotModel, info: CentroidalModelInfo, x, u):
+    """d/dt (h/m): gravity + contact forces and torques about the com."""
+    require_full_centroidal(info)
+    q = get_generalized_coordinates(x)
+    kin = forward_kinematics(model, q)
+    coms = body_com_positions(model, kin)
+    com = (model.body_mass[:, None] * coms).sum(-2) / model.total_mass
+    g = torch.tensor(GRAVITY_VECTOR, dtype=x.dtype, device=x.device)
+    forces = get_contact_forces(u, info)  # (..., nc, 3)
+    lin = g + forces.sum(-2) / info.robot_mass
+    ang = torch.zeros_like(lin)
+    for i, fid in enumerate(info.contact_frame_ids):
+        p_i = frame_position(model, kin, fid)
+        ang = ang + torch.linalg.cross(p_i - com, forces[..., i, :])
+    return torch.cat([lin, ang / info.robot_mass], dim=-1)
+
+
+def centroidal_flow_map(model: RobotModel, info: CentroidalModelInfo, x, u):
+    """Continuous dynamics xdot = f(x, u) of the full centroidal model."""
+    h_dot = normalized_momentum_rate(model, info, x, u)
+    v = generalized_velocity_from_state_input(model, info, x, u)
+    return torch.cat([h_dot, v], dim=-1)

@@ -1,0 +1,81 @@
+"""K2+K3: the constrained Riccati backward sweep and forward rollout as one
+hand-written CUDA kernel (``csrc/riccati.cu``).
+
+Replaces the TPU kernels ``_backward_kernel`` and ``_forward_kernel`` of
+``bipedal_control_tpu/ops/pallas_riccati.py`` (their ``pallas_call`` sites
+in ``riccati_backward_pallas`` and ``riccati_solve_pallas``).  The plain
+PyTorch version is ``solver/riccati.py::riccati_plain``; it runs for CPU
+tensors only.  For CUDA tensors :func:`riccati_solve` launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda_build import build_library, check_launch, check_tensor
+
+_FIELDS = ("A", "B", "c", "C", "D", "e", "Qxx", "Quu", "Qux", "qx", "qu")
+
+
+def build():
+    """Build (or load from the cache) the kernel library."""
+    built = build_library("riccati", "riccati.cu", {})
+    for fn in (built.lib.riccati_solve_f32, built.lib.riccati_solve_f64):
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return built
+
+
+def riccati_solve(nodes, masks, dx0, dual_eps: float, huu_reg: float):
+    """Backward sweep + forward rollout over a scenario batch.
+
+    nodes: LinearizedNode with leading axes (B, N); masks (B, N, ne);
+    dx0 (B, nx).  Returns (K (B,N,nu,nx), k (B,N,nu), dx (B,N+1,nx),
+    du (B,N,nu))."""
+    if nodes.A.device.type == "cpu":
+        from ..solver.riccati import riccati_plain
+
+        return riccati_plain(nodes, masks, dx0, (dual_eps, huu_reg))
+    return riccati_solve_cuda(nodes, masks, dx0, dual_eps, huu_reg)
+
+
+def riccati_solve_cuda(nodes, masks, dx0, dual_eps: float, huu_reg: float):
+    """Launch the kernel on CUDA tensors; raises on anything it does not take."""
+    A = nodes.A
+    if A.device.type != "cuda":
+        raise ValueError(f"riccati kernel needs CUDA tensors, got {A.device}")
+    if A.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"riccati kernel takes float32 or float64, got {A.dtype}")
+    Bn, N, nx, _ = A.shape
+    nu = nodes.B.shape[-1]
+    ne = nodes.e.shape[-1]
+    shapes = {
+        "A": (Bn, N, nx, nx), "B": (Bn, N, nx, nu), "c": (Bn, N, nx), "C": (Bn, N, ne, nx),
+        "D": (Bn, N, ne, nu), "e": (Bn, N, ne), "Qxx": (Bn, N, nx, nx), "Quu": (Bn, N, nu, nu),
+        "Qux": (Bn, N, nu, nx), "qx": (Bn, N, nx), "qu": (Bn, N, nu),
+    }
+    ins = []
+    for f in _FIELDS:
+        t = getattr(nodes, f)
+        check_tensor(t, f, A.device, A.dtype, shapes[f])
+        ins.append(t)
+    check_tensor(masks, "masks", A.device, A.dtype, (Bn, N, ne))
+    check_tensor(dx0, "dx0", A.device, A.dtype, (Bn, nx))
+    K = torch.empty(Bn, N, nu, nx, dtype=A.dtype, device=A.device)
+    k = torch.empty(Bn, N, nu, dtype=A.dtype, device=A.device)
+    dx = torch.empty(Bn, N + 1, nx, dtype=A.dtype, device=A.device)
+    du = torch.empty(Bn, N, nu, dtype=A.dtype, device=A.device)
+    lib = build().lib
+    fn = lib.riccati_solve_f32 if A.dtype == torch.float32 else lib.riccati_solve_f64
+    tensors = ins + [masks, dx0, K, k, dx, du]
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        status = fn(*[t.data_ptr() for t in tensors], Bn, N, nx, nu, ne, float(dual_eps), float(huu_reg), stream)
+    check_launch(status, "riccati kernel")
+    riccati_solve.launches += 1
+    return K, k, dx, du
+
+
+riccati_solve.launches = 0

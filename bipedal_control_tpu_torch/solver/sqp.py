@@ -1,0 +1,192 @@
+"""Multiple-shooting Gauss-Newton SQP over an explicit scenario batch
+(solver/sqp.py counterpart; the JAX package vmaps a single-scenario solve).
+
+One iteration: structured linearization of every (scenario, node), the
+equality-constrained Riccati sweep, then the OCS2 filter line search over
+the step candidates, all evaluated at once.  ``sqp_iterations=1`` is the
+real-time iteration.  The port implements cone "soft"; "hard" and "ipm"
+raise NotImplementedError.
+
+Every tensor argument carries the scenario batch on its leading axis B.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..model.centroidal import CentroidalModelInfo
+from ..model.robot_model import RobotModel
+from ..ocp.linearize import linearize_node_structured, node_eval
+from ..ocp.problem import NodeRefs, OcpSettings, node_cost, weight_compensating_input
+from .riccati import solve_lqr, solve_lqr_pallas
+
+# Filter-linesearch bands on the squared constraint violation (task.info
+# sqp.g_max 1e-2 / g_min 1e-6).
+_G_MAX = 1e-2
+_G_MIN = 1e-6
+
+
+class SqpSolution(NamedTuple):
+    """PrimalSolution equivalent, batched over B."""
+
+    t_nodes: torch.Tensor  # (B, N+1)
+    x_traj: torch.Tensor  # (B, N+1, nx)
+    u_traj: torch.Tensor  # (B, N, nu)
+    K: torch.Tensor  # (B, N, nu, nx) feedback gains
+    cost: torch.Tensor  # (B,) achieved merit cost term
+    defect_norm: torch.Tensor  # (B,) l1 dynamics defect
+    eq_norm: torch.Tensor  # (B,) l1 equality residual
+    step_size: torch.Tensor  # (B,) accepted line-search step
+
+
+def eq_mask_from_flags(contact_flags):
+    """(..., 4) flags -> (..., 16) active-row mask: the 12 velocity/force rows
+    are always active; the 4 normal-velocity rows only during swing."""
+    ones = torch.ones(contact_flags.shape[:-1] + (12,), dtype=contact_flags.dtype, device=contact_flags.device)
+    return torch.cat([ones, 1.0 - contact_flags], dim=-1)
+
+
+def _performance(model, info, settings, Q, R, xs, us, refs: NodeRefs):
+    """(cost, squared-violation ISE, l1 defect, l1 eq) summed over the node
+    axis, for any leading dims that broadcast against refs'."""
+    c, defect, e = node_eval(model, info, settings, Q, R, xs[..., :-1, :], us, xs[..., 1:, :], refs)
+    return (
+        c.sum(-1),
+        (defect**2).sum((-1, -2)) + (e**2).sum((-1, -2)),
+        defect.abs().sum((-1, -2)),
+        e.abs().sum((-1, -2)),
+    )
+
+
+def _candidate_costs(model, info, settings, Q, R, xs_c, us_c, refs: NodeRefs):
+    """dt-scaled tracking + cone-barrier cost per step candidate: the FK-free
+    part of node_eval over (..., N, .) candidates whose refs broadcast."""
+    return (refs.dt * node_cost(model, info, settings, Q, R, xs_c, us_c, refs)).sum(-1)
+
+
+def _filter_accept(cost_base, viol_base, cost_step, viol_step):
+    """OCS2 FilterLinesearch acceptance: infeasible iterates must reduce
+    violation; near-feasible steps must reduce cost; in between either; and
+    a step from a feasible base may never leave the g_max band."""
+    infeasible = viol_base > _G_MAX
+    blowup = viol_step > _G_MAX
+    both_feasible = (viol_step < _G_MIN) & (viol_base < _G_MAX)
+    reduce_viol = viol_step < (1.0 - 1e-3) * viol_base
+    reduce_cost = cost_step < cost_base - 1e-6 * cost_base.abs()
+    return torch.where(
+        infeasible,
+        reduce_viol,
+        ~blowup & torch.where(both_feasible, reduce_cost, reduce_cost | reduce_viol),
+    )
+
+
+def _check_settings(info: CentroidalModelInfo, settings: OcpSettings) -> None:
+    if settings.cone != "soft":
+        raise NotImplementedError(f"cone={settings.cone!r}: the port implements the soft cone only")
+    if settings.linearize != "structured":
+        raise NotImplementedError(f"linearize={settings.linearize!r}: the port implements 'structured' only")
+    if settings.riccati not in ("sequential", "pallas"):
+        raise NotImplementedError(f"riccati={settings.riccati!r}: the port implements 'sequential' and 'pallas'")
+    if settings.merit not in ("xla", "pallas"):
+        raise NotImplementedError(f"merit={settings.merit!r}")
+    if info.model_type != 0:
+        raise NotImplementedError("the port implements FullCentroidalDynamics (model_type 0) only")
+
+
+def sqp_solve(
+    model: RobotModel,
+    info: CentroidalModelInfo,
+    settings: OcpSettings,
+    Q,
+    R,
+    refs: NodeRefs,  # fields (B, N, ...)
+    t_nodes,  # (B, N+1)
+    x_init,  # (B, nx) measured initial states
+    x_warm,  # (B, N+1, nx) warm-start state trajectories
+    u_warm,  # (B, N, nu)
+    merit_sums=None,
+) -> SqpSolution:
+    """Run ``settings.sqp_iterations`` Gauss-Newton iterations per scenario.
+
+    merit_sums: the evaluator of ops/merit_kernel.make_merit_sums for
+    ``merit="pallas"``; built from the model when not given.  The warm-start
+    tensors are not modified."""
+    _check_settings(info, settings)
+    Bb, nx = x_init.shape
+    xs = x_warm.clone()
+    xs[:, 0] = x_init  # the initial state is a hard parameter: pin node 0
+    us = u_warm
+    dtype, device = x_init.dtype, x_init.device
+
+    lqr = solve_lqr_pallas if settings.riccati == "pallas" else solve_lqr
+    if settings.merit == "pallas" and len(settings.linesearch_alphas) and merit_sums is None:
+        from ..ops.merit_kernel import make_merit_sums
+
+        merit_sums = make_merit_sums(model, info, settings)
+    masks = eq_mask_from_flags(refs.contact_flags)
+    dx0 = torch.zeros(Bb, nx, dtype=dtype, device=device)
+    step_size = torch.ones(Bb, dtype=dtype, device=device)
+    gains = cost = defect = eq = None
+    for _ in range(settings.sqp_iterations):
+        nodes = linearize_node_structured(model, info, settings, Q, R, xs[:, :-1], us, xs[:, 1:], refs)
+        sol = lqr(nodes, masks, dx0)
+        gains = sol.K
+        e_masked = masks * nodes.e
+
+        if len(settings.linesearch_alphas) == 0:
+            # pure RTI: full Newton step, diagnostics of the pre-step point
+            xs = xs + sol.dx
+            us = us + sol.du
+            step_size = torch.ones(Bb, dtype=dtype, device=device)
+            cost = nodes.cost.sum(-1)
+            defect = nodes.c.abs().sum((-1, -2))
+            eq = e_masked.abs().sum((-1, -2))
+            continue
+
+        alphas = torch.tensor(settings.linesearch_alphas, dtype=dtype, device=device)
+        xs_c = xs[:, None] + alphas[None, :, None, None] * sol.dx[:, None]  # (B, A, N+1, nx)
+        us_c = us[:, None] + alphas[None, :, None, None] * sol.du[:, None]
+        refs_a = NodeRefs(*(f[:, None] for f in refs))  # broadcast over candidates
+        if settings.merit == "pallas":
+            n_a = alphas.shape[0]
+            bc = lambda a: a[:, None].expand((Bb, n_a) + a.shape[1:])
+            sums = merit_sums(
+                xs_c[:, :, :-1], us_c, xs_c[:, :, 1:], bc(refs.contact_flags), bc(refs.swing_vref),
+                bc(refs.swing_pref), bc(refs.dt),
+            )  # (B, A, N, 4): [|defect|, defect^2, |eq|, eq^2] per node
+            d1_a = sums[..., 0].sum(-1)
+            viols_a = (sums[..., 1] + sums[..., 3]).sum(-1)
+            e1_a = sums[..., 2].sum(-1)
+            costs_a = _candidate_costs(model, info, settings, Q, R, xs_c[:, :, :-1], us_c, refs_a)
+        else:
+            costs_a, viols_a, d1_a, e1_a = _performance(model, info, settings, Q, R, xs_c, us_c, refs_a)
+        # alpha = 0 baseline from the node data the linearization holds
+        cost0 = nodes.cost.sum(-1)
+        viol0 = (nodes.c**2).sum((-1, -2)) + (e_masked**2).sum((-1, -2))
+        d1_0 = nodes.c.abs().sum((-1, -2))
+        e1_0 = e_masked.abs().sum((-1, -2))
+        accepted = _filter_accept(cost0[:, None], viol0[:, None], costs_a, viols_a)  # (B, A)
+        # largest accepted alpha (alphas sorted descending); fall back to 0
+        idx = torch.argmax(accepted.to(torch.int32), dim=1)
+        any_ok = accepted.any(dim=1)
+        pick = lambda a: a.gather(1, idx[:, None])[:, 0]
+        step_size = torch.where(any_ok, alphas[idx], torch.zeros_like(cost0))
+        xs = xs + step_size[:, None, None] * sol.dx
+        us = us + step_size[:, None, None] * sol.du
+        cost = torch.where(any_ok, pick(costs_a), cost0)
+        defect = torch.where(any_ok, pick(d1_a), d1_0)
+        eq = torch.where(any_ok, pick(e1_a), e1_0)
+    return SqpSolution(
+        t_nodes=t_nodes, x_traj=xs, u_traj=us, K=gains, cost=cost, defect_norm=defect, eq_norm=eq,
+        step_size=step_size,
+    )
+
+
+def initial_trajectory(info: CentroidalModelInfo, refs: NodeRefs, x_init, num_nodes: int):
+    """Cold start (BipedalRobotInitializer): state held at x_init, input =
+    weight-compensating forces for each node's contact mode.
+    x_init (..., nx) -> xs (..., num_nodes, nx), us (..., N, nu)."""
+    xs = x_init.unsqueeze(-2).expand(x_init.shape[:-1] + (num_nodes, x_init.shape[-1])).clone()
+    us = weight_compensating_input(info, refs.contact_flags, info.input_dim)
+    return xs, us

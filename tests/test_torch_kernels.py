@@ -1,0 +1,149 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions.
+
+The comparisons need an NVIDIA GPU with nvcc: they carry the ``gpu`` marker
+and skip elsewhere.  This file imports neither JAX nor the JAX package, so
+on a GPU machine it runs on its own:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+float64 bars: 1e-9 for the Riccati sweep (as the reference's kernel test),
+rtol 1e-10 for the merit sums; the solver as a whole at the batched-parity
+bars (1e-5, K 1e-3, step_size exact).
+"""
+import numpy as np
+import pytest
+import torch
+
+from bipedal_control_tpu_torch.model.centroidal import make_info
+from bipedal_control_tpu_torch.model.robot_model import from_description
+from bipedal_control_tpu_torch.model.urdf import JOINT_PRISMATIC, JOINT_REVOLUTE, RobotDescription
+from bipedal_control_tpu_torch.ocp.problem import LinearizedNode, NodeRefs, OcpSettings
+from bipedal_control_tpu_torch.ops import merit_kernel, riccati_kernel
+from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
+from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _biped():
+    """4-joint biped with revolute and prismatic joints and skewed axes."""
+    rot = lambda a, t: (lambda K: np.eye(3) + np.sin(t) * K + (1 - np.cos(t)) * K @ K)(
+        np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]) / np.linalg.norm(a)
+    )
+    axes = np.array([[0.1, 0.99, 0.0], [0.0, 1.0, 0.05], [0.0, 1.0, 0.0], [0.05, 0.0, 1.0]])
+    desc = RobotDescription(
+        name="kernel_test_biped", joint_names=["lh", "lk", "rh", "rs"],
+        joint_parent_body=np.array([0, 1, 0, 3]),
+        joint_type=np.array([JOINT_REVOLUTE, JOINT_REVOLUTE, JOINT_REVOLUTE, JOINT_PRISMATIC]),
+        joint_offset_R=np.stack([rot([0, 0, 1], 0.1), rot([1, 0, 0], -0.15), rot([0, 1, 0], 0.07), rot([1, 1, 0], 0.12)]),
+        joint_offset_p=np.array([[0.01, 0.11, -0.12], [0.02, 0.01, -0.31], [0.01, -0.11, -0.12], [-0.015, 0.005, -0.29]]),
+        joint_axis=axes / np.linalg.norm(axes, axis=1, keepdims=True),
+        joint_limit_lower=-2 * np.ones(4), joint_limit_upper=2 * np.ones(4),
+        joint_limit_effort=100 * np.ones(4), joint_limit_velocity=20 * np.ones(4),
+        body_mass=np.array([9.0, 1.6, 0.9, 1.5, 0.7]),
+        body_com=np.array([[0.01, 0, 0.15], [0, 0.02, -0.14], [0.01, -0.005, -0.17], [0, -0.02, -0.15], [-0.01, 0.005, -0.16]]),
+        body_inertia=np.stack([np.diag([0.02 + 0.01 * b, 0.024 + 0.012 * b, 0.016 + 0.008 * b]) for b in range(5)]),
+        frame_names=["lt", "lh", "rt", "rh"], frame_body=np.array([2, 2, 4, 4]),
+        frame_R=np.stack([rot([0, 1, 0], 0.05), rot([0, 1, 0], -0.05), rot([1, 0, 0], 0.04), np.eye(3)]),
+        frame_p=np.array([[0.09, 0, -0.33], [-0.06, 0.01, -0.33], [0.09, -0.01, -0.31], [-0.06, 0, -0.31]]),
+    )
+    model = from_description(desc)
+    return model, make_info(model, ["lt", "lh", "rt", "rh"])
+
+
+def _lqr(rng, B, N, nx, nu, ne, device, dtype):
+    spd = lambda n: (lambda W: W @ np.swapaxes(W, -1, -2) / n + np.eye(n))(rng.normal(size=(B, N, n, n)))
+    mask = np.ones((B, N, ne))
+    mask[:, 1::2, -1] = 0.0
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+    nodes = LinearizedNode(
+        A=T(np.eye(nx) + 0.3 * rng.normal(size=(B, N, nx, nx))), B=T(0.4 * rng.normal(size=(B, N, nx, nu))),
+        c=T(0.1 * rng.normal(size=(B, N, nx))), C=T(0.5 * rng.normal(size=(B, N, ne, nx)) * mask[..., None]),
+        D=T((rng.normal(size=(B, N, ne, nu)) + np.eye(ne, nu)) * mask[..., None]),
+        e=T(0.2 * rng.normal(size=(B, N, ne)) * mask), Qxx=T(spd(nx)), Quu=T(spd(nu)),
+        Qux=T(0.05 * rng.normal(size=(B, N, nu, nx))), qx=T(rng.normal(size=(B, N, nx))),
+        qu=T(rng.normal(size=(B, N, nu))), cost=T(np.zeros((B, N))),
+    )
+    return nodes, T(mask), T(0.1 * rng.normal(size=(B, nx)))
+
+
+@pytest.mark.gpu
+def test_riccati_kernel_matches_plain(cuda):
+    nodes, masks, dx0 = _lqr(np.random.default_rng(0), 5, 6, 7, 5, 3, cuda, torch.float64)
+    regs = _regs(torch.float64)
+    before = riccati_kernel.riccati_solve.launches
+    got = riccati_kernel.riccati_solve(nodes, masks, dx0, *regs)
+    assert riccati_kernel.riccati_solve.launches == before + 1
+    want = riccati_plain(nodes, masks, dx0, regs)
+    for name, g, w in zip(("K", "k", "dx", "du"), got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-9, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integrator", ["rk2", "euler"])
+def test_merit_kernel_matches_plain(cuda, integrator):
+    model, info = _biped()
+    m = model.to(device=cuda)
+    settings = OcpSettings(integrator=integrator, position_error_gain=0.35)
+    rng = np.random.default_rng(1)
+    M, nx, nu = 300, info.state_dim, info.input_dim
+    x = rng.normal(scale=0.4, size=(M, nx))
+    x[:, 8] += 0.6
+    u = rng.normal(size=(M, nu))
+    u[:, 2:12:3] += 30.0
+    flags = np.stack([(np.arange(M) >> k) & 1 for k in range(4)], axis=1).astype(float)
+    T = lambda a: torch.as_tensor(a, device=cuda)
+    args = (T(x), T(u), T(x + rng.normal(scale=0.05, size=(M, nx))), T(flags),
+            T(rng.normal(scale=0.3, size=(M, 4))), T(rng.normal(scale=0.05, size=(M, 4))), T(np.full(M, 0.02)))
+    before = merit_kernel.merit_sums_cuda.launches
+    got = merit_kernel.make_merit_sums(m, info, settings)(*args)
+    assert merit_kernel.merit_sums_cuda.launches == before + 1
+    want = merit_kernel.merit_sums_plain(m, info, settings, *args)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_batched_solver_kernels_match_plain(cuda):
+    model, info = _biped()
+    nx, nu = info.state_dim, info.input_dim
+    B, N = 3, 6
+    rng = np.random.default_rng(2)
+    xs = rng.normal(scale=0.3, size=(B, N + 1, nx))
+    xs[..., 8] += 0.6
+    us = rng.normal(scale=0.8, size=(B, N, nu))
+    us[..., 2:12:3] += 30.0
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64, device=cuda)
+    flags = np.stack([(np.arange(B * N) >> k) & 1 for k in range(4)], axis=1).reshape(B, N, 4).astype(float)
+    refs = NodeRefs(
+        t=T(np.zeros((B, N))), dt=T(np.full((B, N), 0.015)), contact_flags=T(flags),
+        swing_vref=T(rng.normal(scale=0.3, size=(B, N, 4))), swing_pref=T(rng.normal(scale=0.05, size=(B, N, 4))),
+        x_nom=T(xs[:, :-1] + rng.normal(scale=0.1, size=(B, N, nx))), u_nom=T(us + rng.normal(scale=0.4, size=(B, N, nu))),
+    )
+    args = (refs, T(np.zeros((B, N + 1))), T(xs[:, 0] + rng.normal(scale=0.02, size=(B, nx))), T(xs), T(us))
+    Q, R = np.diag(np.linspace(1.0, 3.0, nx)), np.diag(np.linspace(0.1, 0.5, nu))
+    sols = []
+    for ric, mer in (("pallas", "pallas"), ("sequential", "xla")):
+        settings = OcpSettings(position_error_gain=0.35, riccati=ric, merit=mer, linesearch_alphas=(1.0, 0.5))
+        sols.append(make_batched_solver(model, info, settings, Q, R).to(device=cuda)(*args))
+    for name, tol in (("x_traj", 1e-5), ("u_traj", 1e-5), ("K", 1e-3), ("cost", 1e-5), ("defect_norm", 1e-5)):
+        g, w = getattr(sols[0], name), getattr(sols[1], name)
+        assert float((g - w).abs().max()) / max(1.0, float(w.abs().max())) < tol, name
+    assert torch.equal(sols[0].step_size, sols[1].step_size)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernels' CUDA entry points raise on CPU tensors instead of
+    computing there (the plain versions are reached only through the
+    dispatching wrappers, for CPU tensors)."""
+    nodes, masks, dx0 = _lqr(np.random.default_rng(0), 1, 2, 3, 2, 1, "cpu", torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        riccati_kernel.riccati_solve_cuda(nodes, masks, dx0, 1e-9, 1e-9)
+    model, info = _biped()
+    z = lambda *s: torch.zeros(*s, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        merit_kernel.merit_sums_cuda(z(10), {}, 0.0, "rk2", z(2, 16), z(2, 16), z(2, 16), z(2, 4), z(2, 4), z(2, 4), z(2))

@@ -1,0 +1,54 @@
+"""PyTorch port vs JAX reference: the plain constrained Riccati sweep
+(solver/riccati.py::solve_lqr, the plain version of the K2+K3 CUDA kernel)
+on random masked LQR problems, float64, atol 1e-9 as the reference's own
+kernel test (tests/test_pallas_riccati.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bipedal_control_tpu.solver.riccati import solve_lqr as j_solve_lqr
+from bipedal_control_tpu_torch.ocp.problem import LinearizedNode
+from bipedal_control_tpu_torch.solver.riccati import solve_lqr, solve_lqr_pallas
+
+from test_riccati import _random_problem
+
+
+def _batched(seed, B, **kw):
+    nodes_l, masks_l = [], []
+    for b in range(B):
+        n, m = _random_problem(np.random.default_rng(seed + b), **kw)
+        nodes_l.append(n)
+        masks_l.append(m)
+    stack = lambda *a: np.stack([np.asarray(x) for x in a])
+    nodes = jax.tree.map(lambda *a: jnp.asarray(stack(*a)), *nodes_l)
+    masks = jnp.asarray(stack(*masks_l))
+    dx0 = np.random.default_rng(seed + 99).normal(size=(B, nodes.A.shape[-1])) * 0.1
+    return nodes, masks, jnp.asarray(dx0)
+
+
+def _to_port(nodes, masks, dx0):
+    T = lambda a: torch.as_tensor(np.asarray(a))
+    return LinearizedNode(*(T(f) for f in nodes)), T(masks), T(dx0)
+
+
+@pytest.mark.parametrize("constrained", [True, False])
+def test_solve_lqr_matches_reference(constrained):
+    nodes, masks, dx0 = _batched(5, 3, N=6, nx=5, nu=4, ne=3, constrained=constrained)
+    ref = jax.jit(jax.vmap(j_solve_lqr))(nodes, masks, dx0)
+    got = solve_lqr(*_to_port(nodes, masks, dx0))
+    for f in ("K", "k", "dx", "du"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), atol=1e-9, err_msg=f)
+    np.testing.assert_allclose(
+        got.expected_decrease.numpy(), np.asarray(ref.expected_decrease), rtol=1e-8, atol=1e-12
+    )
+
+
+def test_kernel_entry_on_cpu_is_the_plain_version():
+    """riccati='pallas' on CPU tensors runs the plain version, bit-identical."""
+    port = _to_port(*_batched(17, 2, N=4, nx=4, nu=3, ne=2, constrained=True))
+    a, b = solve_lqr_pallas(*port), solve_lqr(*port)
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
