@@ -9,6 +9,9 @@ compute on identical parameters:
     settings_from_numpy(dataclasses.asdict(settings))
     weights_from_numpy(Q, R)
     refs_from_numpy({name: np.asarray(a) for name, a in refs._asdict().items()})
+
+Tensors land on ``device``: the card when None (utils/device.py); pass
+``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
 
@@ -20,10 +23,11 @@ import torch
 from .model.centroidal import CentroidalModelInfo
 from .model.robot_model import LEAF_FIELDS, RobotModel, ancestor_mask_from_parents
 from .ocp.problem import NodeRefs, OcpSettings
+from .utils.device import resolve_device
 
 
 def _tensor(a, dtype, device):
-    return torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype, device=resolve_device(device))
 
 
 def _names(a) -> tuple[str, ...]:

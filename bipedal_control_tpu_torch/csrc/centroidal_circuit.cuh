@@ -135,30 +135,27 @@ __device__ void fk(const T* __restrict__ P, const T* q, Kin<T>& k) {
   }
 }
 
-// velocity fields w_l, v0_l per coordinate (model/second_order.py velocity_fields)
+// velocity field w_l, v0_l of coordinate l (model/second_order.py velocity_fields)
 template <typename T>
-__device__ void fields(const T* __restrict__ P, const Kin<T>& k, T W[kNV][3], T V0[kNV][3]) {
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
+__device__ __forceinline__ void field_column(const T* __restrict__ P, const Kin<T>& k, int l, T* w, T* v0) {
+  if (l < 3) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      W[c][d] = T(0);
-      V0[c][d] = (c == d) ? T(1) : T(0);
+      w[d] = T(0);
+      v0[d] = (l == d) ? T(1) : T(0);
     }
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const T w[3] = {k.E[i], k.E[3 + i], k.E[6 + i]};
+  } else if (l < 6) {
+    const int i = l - 3;
+    const T e[3] = {k.E[i], k.E[3 + i], k.E[6 + i]};
     T wxp[3];
-    cross3(w, k.p[0], wxp);
+    cross3(e, k.p[0], wxp);
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      W[3 + i][d] = w[d];
-      V0[3 + i][d] = -wxp[d];
+      w[d] = e[d];
+      v0[d] = -wxp[d];
     }
-  }
-#pragma unroll
-  for (int j = 0; j < kNJ; ++j) {
+  } else {
+    const int j = l - 6;
     const T* Rb = k.R[j + 1];
     const T* ax = P + P_AXIS + 3 * j;
     T a[3];
@@ -169,17 +166,24 @@ __device__ void fields(const T* __restrict__ P, const Kin<T>& k, T W[kNV][3], T 
       cross3(a, k.p[j + 1], axp);
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        W[6 + j][d] = a[d];
-        V0[6 + j][d] = -axp[d];
+        w[d] = a[d];
+        v0[d] = -axp[d];
       }
     } else {
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        W[6 + j][d] = T(0);
-        V0[6 + j][d] = a[d];
+        w[d] = T(0);
+        v0[d] = a[d];
       }
     }
   }
+}
+
+// all velocity fields, one thread
+template <typename T>
+__device__ void fields(const T* __restrict__ P, const Kin<T>& k, T W[kNV][3], T V0[kNV][3]) {
+#pragma unroll
+  for (int l = 0; l < kNV; ++l) field_column(P, k, l, W[l], V0[l]);
 }
 
 // 3x3 inverse via the adjugate (ops/linalg.py inv3)
@@ -403,6 +407,328 @@ __device__ __forceinline__ void contact_velocity(const T* __restrict__ P, int i,
     cross3(W[l], pee, wxp);
 #pragma unroll
     for (int c = 0; c < 3; ++c) vee[c] += mv * (V0[l][c] + wxp[c]) * v[l];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Group-parallel form: a group of kNV threads evaluates one instance, lane l
+// owning coordinate column l of every (nv)-column stack.  What the whole
+// instance shares (FK, body coms and inertias, the CMM, its inverse base
+// block, v, contact positions, the flow value) lives in shared memory.
+
+// One centroidal evaluation of an instance, resident in shared memory.
+template <typename T>
+struct Pass {
+  Kin<T> k;
+  T W[kNV][3], V0[kNV][3];  // velocity fields
+  T cb[kNB][3];             // body coms (world)
+  T Ib[kNB][9];             // body inertias (world)
+  T com[3];
+  T A[6][kNV];              // centroidal momentum matrix
+  T Abi[36];                // inverse of its base block, row-major
+  T v[kNV];                 // generalized velocity
+  T pee[kNC][3];            // contact positions
+  T f[kNX];                 // flow value
+};
+
+template <typename T>
+__device__ __forceinline__ bool moves(const T* __restrict__ P, int b, int l) {
+  return P[P_MOVE + b * kNV + l] != T(0);
+}
+
+// CMM column l from per-body coms and inertias, summed over the bodies that
+// coordinate l moves (its subtree); cmm_lanes' A_lin / A_ang rows.
+template <typename T>
+__device__ void cmm_column(const T* __restrict__ P, Pass<T>& s, int l) {
+  T com[3] = {T(0), T(0), T(0)}, csub[3] = {T(0), T(0), T(0)}, qsub = T(0);
+  T cc[6] = {T(0), T(0), T(0), T(0), T(0), T(0)}, Isub[9];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) Isub[q] = T(0);
+#pragma unroll
+  for (int b = 0; b < kNB; ++b) {
+    const T mb = P[P_MASS + b];
+    const T* c = s.cb[b];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) com[r] += mb * c[r];
+    if (moves(P, b, l)) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) csub[r] += mb * c[r];
+      qsub += mb * (c[0] * c[0] + c[1] * c[1] + c[2] * c[2]);
+      cc[0] += mb * c[0] * c[0]; cc[1] += mb * c[0] * c[1]; cc[2] += mb * c[0] * c[2];
+      cc[3] += mb * c[1] * c[1]; cc[4] += mb * c[1] * c[2]; cc[5] += mb * c[2] * c[2];
+#pragma unroll
+      for (int q = 0; q < 9; ++q) Isub[q] += s.Ib[b][q];
+    }
+  }
+  const T total_mass = P[P_TOTAL_MASS];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) com[r] /= total_mass;
+  if (l == 0) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) s.com[r] = com[r];
+  }
+  const T msub = P[P_MSUB + l];
+  const T* w = s.W[l];
+  const T* v0 = s.V0[l];
+  T wxc[3], ssub[3], sxv[3];
+  cross3(w, csub, wxc);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) ssub[r] = csub[r] - msub * com[r];
+  cross3(ssub, v0, sxv);
+  const T alpha = qsub - (com[0] * csub[0] + com[1] * csub[1] + com[2] * csub[2]);
+  const T comw = com[0] * w[0] + com[1] * w[1] + com[2] * w[2];
+  const T CCw[3] = {cc[0] * w[0] + cc[1] * w[1] + cc[2] * w[2], cc[1] * w[0] + cc[3] * w[1] + cc[4] * w[2],
+                    cc[2] * w[0] + cc[4] * w[1] + cc[5] * w[2]};
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const T Iw = l < 3 ? T(0) : Isub[3 * r] * w[0] + Isub[3 * r + 1] * w[1] + Isub[3 * r + 2] * w[2];
+    s.A[r][l] = msub * v0[r] + wxc[r];
+    s.A[3 + r][l] = Iw + sxv[r] + w[r] * alpha - CCw[r] + csub[r] * comw;
+  }
+}
+
+// One thread: Ab^{-1}, v = [Ab^{-1}(m h - A_j v_j); v_j] and the flow value.
+template <typename T>
+__device__ void flow_from_cmm(const T* __restrict__ P, const T* x, const T* u, Pass<T>& s) {
+  const T m = P[P_ROBOT_MASS];
+  T Ab[36];
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) Ab[6 * r + c] = s.A[r][c];
+  inv6(Ab, s.Abi);
+  T rhs[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    T ajv = T(0);
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) ajv += s.A[r][6 + j] * u[3 * kNC + j];
+    rhs[r] = m * x[r] - ajv;
+  }
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    T acc = T(0);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) acc += s.Abi[6 * r + q] * rhs[q];
+    s.v[r] = acc;
+    s.f[6 + r] = acc;
+  }
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j) {
+    s.v[6 + j] = u[3 * kNC + j];
+    s.f[12 + j] = u[3 * kNC + j];
+  }
+  T fsum[3] = {T(0), T(0), T(0)}, ang[3] = {T(0), T(0), T(0)};
+#pragma unroll
+  for (int i = 0; i < kNC; ++i) {
+    const T* Fi = u + 3 * i;
+    const T rel[3] = {s.pee[i][0] - s.com[0], s.pee[i][1] - s.com[1], s.pee[i][2] - s.com[2]};
+    T t[3];
+    cross3(rel, Fi, t);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      fsum[r] += Fi[r];
+      ang[r] += t[r];
+    }
+  }
+  s.f[0] = fsum[0] / m;
+  s.f[1] = fsum[1] / m;
+  s.f[2] = fsum[2] / m + T(-9.81);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) s.f[3 + r] = ang[r] / m;
+}
+
+// The centroidal evaluation at state x (flow()'s circuit, group-parallel).
+// Every thread of the block calls it (it synchronises the block); lane is
+// the thread's index in its instance's group, 0 <= lane < kNV.
+template <typename T>
+__device__ void centroidal_pass(const T* __restrict__ P, const T* x, const T* u, Pass<T>& s, int lane) {
+  if (lane == 0) fk(P, x + 6, s.k);
+  __syncthreads();
+  field_column(P, s.k, lane, s.W[lane], s.V0[lane]);
+  if (lane < kNB) {
+    const T* Rb = s.k.R[lane];
+    const T* cbody = P + P_COM + 3 * lane;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      s.cb[lane][r] = s.k.p[lane][r] + (Rb[3 * r] * cbody[0] + Rb[3 * r + 1] * cbody[1] + Rb[3 * r + 2] * cbody[2]);
+    T RI[9];
+    mul3(Rb, P + P_INERTIA + 9 * lane, RI);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        s.Ib[lane][3 * r + c] = RI[3 * r] * Rb[3 * c] + RI[3 * r + 1] * Rb[3 * c + 1] + RI[3 * r + 2] * Rb[3 * c + 2];
+  }
+  if (lane < kNC) {
+    const int b = contact_body(lane);
+    const T* Rb = s.k.R[b];
+    const T* cp = P + P_CONTACT_P + 3 * lane;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      s.pee[lane][r] = s.k.p[b][r] + (Rb[3 * r] * cp[0] + Rb[3 * r + 1] * cp[1] + Rb[3 * r + 2] * cp[2]);
+  }
+  __syncthreads();
+  cmm_column(P, s, lane);
+  __syncthreads();
+  if (lane == 0) flow_from_cmm(P, x, u, s);
+  __syncthreads();
+}
+
+// Column l of every contact Jacobian, J_i[:, l] = move(b_i, l) (v0_l + w_l x p_i)
+// (contact_jacobians_lanes).
+template <typename T>
+__device__ __forceinline__ void contact_jacobian_column(const T* __restrict__ P, const Pass<T>& s, int l,
+                                                        T J[kNC][3]) {
+#pragma unroll
+  for (int i = 0; i < kNC; ++i) {
+    const bool mv = moves(P, contact_body(i), l);
+    T wxp[3];
+    cross3(s.W[l], s.pee[i], wxp);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) J[i][c] = mv ? s.V0[l][c] + wxp[c] : T(0);
+  }
+}
+
+// Column l of the directional CMM derivative dA_v = d/dq (A(q) v) at fixed v,
+// and of the contacts' dJ_v = d/dq (J_i v) (cmm_v_derivative_lanes and the
+// dJ_v term of linearize_node_lanes).  The per-body aggregates walk the
+// tree root to leaves: P_b = sum of v_k dv0_k, W_b = sum of v_k dw_k over
+// the coordinates k that move body b (column l each), omega_b and the
+// body-origin velocity v0a_b (instance-wide; every lane recomputes them).
+template <typename T>
+__device__ void cmm_v_derivative_column(const T* __restrict__ P, const Pass<T>& s, int l, const T J[kNC][3],
+                                        T dA[6], T dJ[kNC][3]) {
+  const T* w = s.W[l];
+  const T* v0 = s.V0[l];
+  const T* pb = s.k.p[0];
+  const T total_mass = P[P_TOTAL_MASS];
+  const T dcom[3] = {s.A[0][l] / total_mass, s.A[1][l] / total_mass, s.A[2][l] / total_mass};
+  T Pb[kNB][3], Wb[kNB][3], om[kNB][3], v0a[kNB][3];
+  T dp[3] = {T(0), T(0), T(0)}, dL[3] = {T(0), T(0), T(0)};
+
+  // base (body 0): Euler coordinates k = 3 + i; dw_k[l] = w_l x w_k for the
+  // Euler coordinates l before k, dp_base/dq_l = e_l for l < 3
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    Pb[0][c] = Wb[0][c] = om[0][c] = T(0);
+    v0a[0][c] = s.v[c];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const T wk[3] = {s.k.E[i], s.k.E[3 + i], s.k.E[6 + i]};
+    const T vk = s.v[3 + i];
+    T dw[3] = {T(0), T(0), T(0)};
+    if (l >= 3 && l < 3 + i) cross3(w, wk, dw);
+    const T dpb[3] = {l == 0 ? T(1) : T(0), l == 1 ? T(1) : T(0), l == 2 ? T(1) : T(0)};
+    T t1[3], t2[3];
+    cross3(dw, pb, t1);
+    cross3(wk, dpb, t2);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      Pb[0][c] -= vk * (t1[c] + t2[c]);
+      Wb[0][c] += vk * dw[c];
+      om[0][c] += vk * wk[c];
+      v0a[0][c] += vk * s.V0[3 + i][c];
+    }
+  }
+  // joints: body b = j + 1 hangs off body parent_of(j)
+#pragma unroll
+  for (int j = 0; j < kNJ; ++j) {
+    const int b = j + 1, par = parent_of(j);
+    const T vk = s.v[6 + j];
+    const bool rev = revolute(j);
+    const T* a = rev ? s.W[6 + j] : s.V0[6 + j];  // world joint axis
+    const T* anchor = s.k.p[b];
+    const bool mv = moves(P, b, l);
+    const bool rot = mv && l >= 3;
+    T da[3], dan[3], t[3];
+    cross3(w, a, t);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) da[c] = rot ? t[c] : T(0);
+    cross3(w, anchor, t);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) dan[c] = mv ? v0[c] + t[c] : T(0);
+    T dv0_row[3], v0_row[3];
+    if (rev) {
+      T t1[3], t2[3];
+      cross3(da, anchor, t1);
+      cross3(a, dan, t2);
+      cross3(a, anchor, t);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        dv0_row[c] = -(t1[c] + t2[c]);
+        v0_row[c] = -t[c];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        dv0_row[c] = da[c];
+        v0_row[c] = a[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      Pb[b][c] = Pb[par][c] + vk * dv0_row[c];
+      Wb[b][c] = Wb[par][c] + (rev ? vk * da[c] : T(0));
+      om[b][c] = om[par][c] + (rev ? vk * a[c] : T(0));
+      v0a[b][c] = v0a[par][c] + vk * v0_row[c];
+    }
+  }
+  // body-wise assembly of d(momentum)/dq_l
+#pragma unroll
+  for (int b = 0; b < kNB; ++b) {
+    const T mb = P[P_MASS + b];
+    const T* cb = s.cb[b];
+    const T* Iw = s.Ib[b];
+    const bool mv = moves(P, b, l);
+    const bool rot = mv && l >= 3;
+    T t[3], t2[3], cdot[3], Jv[3], dcdot[3];
+    cross3(om[b], cb, t);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cdot[c] = v0a[b][c] + t[c];
+    cross3(w, cb, t);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) Jv[c] = mv ? v0[c] + t[c] : T(0);
+    cross3(Wb[b], cb, t);
+    cross3(om[b], Jv, t2);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      dcdot[c] = Pb[b][c] + t[c] + t2[c];
+      dp[c] += mb * dcdot[c];
+    }
+    T Iom[3], wxom[3], IWb[3], Iwxom[3], wxIom[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      Iom[r] = Iw[3 * r] * om[b][0] + Iw[3 * r + 1] * om[b][1] + Iw[3 * r + 2] * om[b][2];
+      IWb[r] = Iw[3 * r] * Wb[b][0] + Iw[3 * r + 1] * Wb[b][1] + Iw[3 * r + 2] * Wb[b][2];
+    }
+    cross3(w, om[b], wxom);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) Iwxom[r] = Iw[3 * r] * wxom[0] + Iw[3 * r + 1] * wxom[1] + Iw[3 * r + 2] * wxom[2];
+    cross3(w, Iom, wxIom);
+    const T rel[3] = {cb[0] - s.com[0], cb[1] - s.com[1], cb[2] - s.com[2]};
+    const T jm[3] = {Jv[0] - dcom[0], Jv[1] - dcom[1], Jv[2] - dcom[2]};
+    cross3(jm, cdot, t);
+    cross3(rel, dcdot, t2);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      dL[c] += (rot ? wxIom[c] - Iwxom[c] : T(0)) + IWb[c] + mb * (t[c] + t2[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    dA[c] = dp[c];
+    dA[3 + c] = dL[c];
+  }
+  // dJ_v of contact i on body b: P_b + W_b x p_i + omega_b x J_i
+#pragma unroll
+  for (int i = 0; i < kNC; ++i) {
+    const int b = contact_body(i);
+    T t[3], t2[3];
+    cross3(Wb[b], s.pee[i], t);
+    cross3(om[b], J[i], t2);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) dJ[i][c] = Pb[b][c] + t[c] + t2[c];
   }
 }
 

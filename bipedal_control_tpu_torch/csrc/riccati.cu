@@ -29,6 +29,8 @@
 // there are no padding lanes, every CTA is a real scenario.
 #include <cuda_runtime.h>
 
+#include "gauss_jordan.cuh"
+
 namespace {
 
 template <typename T>
@@ -167,24 +169,7 @@ __global__ void riccati_kernel(
     __syncthreads();
 
     // Gauss-Jordan without pivoting: aug -= (col - e_i) (row_i / pivot)
-    for (int i = 0; i < nk; ++i) {
-      const T* row = rowb + (i & 1) * W;
-      const T* colv = colb + (i & 1) * nk;
-      T* nrow = rowb + ((i + 1) & 1) * W;
-      T* ncol = colb + ((i + 1) & 1) * nk;
-      const T piv = row[i];
-      const int wc = W - i - 1;  // columns i+1..W-1 (eliminated ones stay unit)
-      for (int idx = tid; idx < nk * wc; idx += nth) {
-        const int r = idx / wc, col = i + 1 + idx % wc;
-        const T norm = row[col] / piv;
-        const T f = colv[r] - (r == i ? T(1) : T(0));
-        const T v = aug[r * W + col] - f * norm;
-        aug[r * W + col] = v;
-        if (col == i + 1) ncol[r] = v;
-        if (r == i + 1) nrow[col] = v;
-      }
-      __syncthreads();
-    }
+    gauss_jordan_eliminate(aug, rowb, colb, nk, W);
 
     // K = X[:nu, state cols], k = X[:nu, rhs col]; H_uu K -> SB, H_uu k -> Sc
     {

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .urdf import RobotDescription
 
 LEAF_FIELDS = (
@@ -109,6 +110,9 @@ def ancestor_mask_from_parents(joint_parent_body) -> np.ndarray:
 def from_description(
     desc: RobotDescription, dtype=torch.float64, device=None
 ) -> RobotModel:
+    """The model's tensors on ``device``: the card when None
+    (utils/device.py); pass ``device="cpu"`` for the CPU."""
+    device = resolve_device(device)
     arr = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype, device=device)
     return RobotModel(
         name=desc.name,

@@ -267,15 +267,21 @@ def linearize_node_structured(
     c = F - x_next
 
     e, C, D = _eq_jacobians(model, info, settings, x, u, refs, fj0)
+    return LinearizedNode(A, B, c, C, D, e, *cost_quadratics(info, settings, Q, R, x, u, refs))
 
+
+def cost_quadratics(info: CentroidalModelInfo, settings: OcpSettings, Q, R, x, u, refs: NodeRefs):
+    """The FK-free node data (Qxx, Quu, Qux, qx, qu, cost): dt-scaled
+    tracking quadratics and the cone barrier's exact u-derivatives."""
+    dt = refs.dt[..., None]
+    dtm = refs.dt[..., None, None]
     dx_dev, du_dev, cost_val = _cost_terms(info, settings, Q, R, x, u, refs)
-    lead = x.shape[:-1]
     Qxx = dtm * Q
     Quu = dtm * R + _barrier_hessian_u(settings, info, u, refs)
-    Qux = torch.zeros(lead + (u.shape[-1], nx), dtype=x.dtype, device=x.device)
+    Qux = torch.zeros(x.shape[:-1] + (u.shape[-1], x.shape[-1]), dtype=x.dtype, device=x.device)
     qx = dt * mv(Q, dx_dev)
     qu = dt * mv(R, du_dev) + _barrier_grad_u(settings, info, u, refs)
-    return LinearizedNode(A=A, B=B, c=c, C=C, D=D, e=e, Qxx=Qxx, Quu=Quu, Qux=Qux, qx=qx, qu=qu, cost=cost_val)
+    return Qxx, Quu, Qux, qx, qu, cost_val
 
 
 def _eq_from_terms(settings: OcpSettings, terms: ConfigTerms, v, u, info, refs: NodeRefs):

@@ -34,11 +34,12 @@ NUM_CONTACTS = 4
 class OcpSettings:
     """Solver knobs with the JAX package's field names and defaults.
 
-    The port implements cone "soft", integrators "euler" and "rk2", and
-    linearize "structured".  ``riccati="pallas"`` and ``merit="pallas"`` keep
+    The port implements cone "soft" and integrators "euler" and "rk2".
+    ``linearize="pallas"``, ``riccati="pallas"`` and ``merit="pallas"`` keep
     their reference names and mean "the hand-written kernel": the CUDA
-    kernels of ``ops/riccati_kernel.py`` and ``ops/merit_kernel.py`` for CUDA
-    tensors, and their plain PyTorch versions for CPU tensors.
+    kernels of ``ops/linearize_kernel.py``, ``ops/riccati_kernel.py`` and
+    ``ops/merit_kernel.py`` for CUDA tensors, and their plain PyTorch
+    versions for CPU tensors.  ``linearize="structured"``,
     ``riccati="sequential"`` and ``merit="xla"`` run the plain versions on
     every device."""
 

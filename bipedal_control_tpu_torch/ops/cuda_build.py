@@ -12,8 +12,9 @@ defines (robot topology) followed by ``#include "<name>.cu"``.
 
 Libraries are cached under ``build/torch_kernels/`` at the repository root,
 keyed by a hash of the sources, the compile-time defines and the flags, so
-the first call in a fresh checkout builds everything and later calls load.
-The ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
+the first call in a fresh checkout builds everything and later calls load;
+:func:`build_libraries` starts one nvcc per library at once.  The
+``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 each library.  Nothing here runs when the module is imported.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -40,7 +42,7 @@ class BuiltLibrary:
     build_seconds: float  # 0.0 when loaded from the cache
 
 
-_loaded: dict[str, BuiltLibrary] = {}
+_loaded: dict[tuple, BuiltLibrary] = {}  # (name, source, defines) -> library: launches skip the hashing
 
 
 def find_nvcc() -> str:
@@ -50,9 +52,19 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def build_libraries(requests) -> list[BuiltLibrary]:
+    """Build several (name, source, defines) libraries at once, one nvcc
+    process each, all started together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(requests))) as pool:
+        return list(pool.map(lambda r: build_library(*r), requests))
+
+
 def build_library(name: str, source: str, defines: dict[str, str]) -> BuiltLibrary:
     """Compile csrc/<source> under the given #defines and load it; the cache
     key hashes every csrc file, the defines and the flags."""
+    request = (name, source, tuple(sorted(defines.items())))
+    if request in _loaded:
+        return _loaded[request]
     srcs = sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
     h = hashlib.sha256()
     for p in srcs:
@@ -63,8 +75,6 @@ def build_library(name: str, source: str, defines: dict[str, str]) -> BuiltLibra
     unit = "".join(f"#define {k} {v}\n" for k, v in sorted(defines.items())) + f'#include "{source}"\n'
     h.update(repr((unit, ARCH_FLAGS, NVCC_FLAGS)).encode())
     key = f"{name}-{h.hexdigest()[:16]}"
-    if key in _loaded:
-        return _loaded[key]
     out_dir = BUILD_DIR / key
     lib_path = out_dir / f"lib{name}.so"
     log_path = out_dir / "ptxas.txt"
@@ -87,7 +97,7 @@ def build_library(name: str, source: str, defines: dict[str, str]) -> BuiltLibra
         ptxas_report=log_path.read_text() if log_path.exists() else "",
         build_seconds=seconds,
     )
-    _loaded[key] = built
+    _loaded[request] = built
     return built
 
 

@@ -1,0 +1,61 @@
+"""K5: the batched pivot-free Gauss-Jordan solve as a hand-written CUDA
+kernel (``csrc/gauss_jordan.cu``).
+
+Replaces the TPU kernel ``_gj_kernel`` of ``bipedal_control_tpu/ops/pallas_gj.py``
+(its ``pallas_call`` in ``gauss_jordan_solve_pallas``).  No production path
+calls it: the Riccati kernel (``csrc/riccati.cu``) runs the same elimination
+inline on its stage KKT.  The plain PyTorch version is
+``ops/linalg.py::gauss_jordan_solve``; :func:`gauss_jordan_solve_pallas`
+runs it for CPU tensors only, and for CUDA tensors launches the kernel or
+raises.  The TPU kernel's padding of each system to (8, 128) tiles has no
+counterpart.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda_build import build_library, check_launch, check_tensor
+from .linalg import gauss_jordan_solve
+
+
+def build():
+    built = build_library("gauss_jordan", "gauss_jordan.cu", {})
+    for fn in (built.lib.gauss_jordan_f32, built.lib.gauss_jordan_f64):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return built
+
+
+def gauss_jordan_solve_pallas(A, B):
+    """Solve A X = B for quasi-definite A without pivoting.
+    A: (batch, n, n); B: (batch, n, k) -> X: (batch, n, k)."""
+    if A.device.type == "cpu":
+        return gauss_jordan_solve(A, B)
+    return gauss_jordan_solve_cuda(A, B)
+
+
+def gauss_jordan_solve_cuda(A, B):
+    """Launch the kernel on CUDA tensors; raises on anything it does not take."""
+    dev, dtype = A.device, A.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"Gauss-Jordan kernel needs CUDA tensors, got {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"Gauss-Jordan kernel takes float32 or float64, got {dtype}")
+    batch, n, _ = A.shape
+    k = B.shape[-1]
+    check_tensor(A, "A", dev, dtype, (batch, n, n))
+    check_tensor(B, "B", dev, dtype, (batch, n, k))
+    X = torch.empty(batch, n, k, dtype=dtype, device=dev)
+    lib = build().lib
+    fn = lib.gauss_jordan_f32 if dtype == torch.float32 else lib.gauss_jordan_f64
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(A.data_ptr(), B.data_ptr(), X.data_ptr(), batch, n, k, stream)
+    check_launch(status, "Gauss-Jordan kernel")
+    gauss_jordan_solve_pallas.launches += 1
+    return X
+
+
+gauss_jordan_solve_pallas.launches = 0

@@ -16,35 +16,11 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..ocp.problem import NUM_CONTACTS, NodeRefs
 from .cuda_build import build_library, check_launch, check_tensor
-from .static_model import StaticModel, make_static_model, tables_np
-
-
-def kernel_defines(sm: StaticModel) -> dict[str, str]:
-    if len(sm.contact_body) != NUM_CONTACTS:
-        raise NotImplementedError(f"merit kernel takes {NUM_CONTACTS} contacts, got {len(sm.contact_body)}")
-    join = lambda xs: ",".join(str(int(v)) for v in xs)
-    return {
-        "NJ": str(sm.nj),
-        "PARENT_LIST": join(sm.parent),
-        "JTYPE_LIST": join(sm.jtype),
-        "CONTACT_BODY_LIST": join(sm.contact_body),
-    }
-
-
-def kernel_params(sm: StaticModel, robot_mass: float) -> np.ndarray:
-    """The parameter buffer in the layout of csrc/centroidal_circuit.cuh."""
-    parts = [
-        sm.off_R.reshape(-1), sm.off_p.reshape(-1), sm.axis.reshape(-1), sm.mass.reshape(-1),
-        sm.com.reshape(-1), sm.inertia.reshape(-1), sm.contact_p.reshape(-1),
-        tables_np(sm).reshape(-1),  # msub (nv) | move (nb, nv)
-        np.array([sm.total_mass, float(robot_mass)]),
-    ]
-    return np.concatenate(parts).astype(np.float64)
+from .static_model import circuit_static
 
 
 def build(defines: dict[str, str]):
@@ -108,16 +84,13 @@ def make_merit_sums(model, info, settings, static=None):
     tensors.  Raises for what the kernel does not implement, as the TPU
     kernel does: model_type != 0 and integrators other than euler/rk2.
 
-    static: (kernel_defines, kernel_params tensor) prepared once by the
-    caller; extracted from the model when not given."""
+    static: (kernel_defines, kernel_params tensor) of ops/static_model.py,
+    prepared once by the caller; extracted from the model when not given."""
     if info.model_type != 0:
         raise NotImplementedError("merit kernel supports FullCentroidalDynamics only")
     if settings.integrator not in ("euler", "rk2"):
         raise NotImplementedError(f"merit kernel integrator {settings.integrator}")
-    if static is None:
-        sm = make_static_model(model, info.contact_frame_ids)
-        static = (kernel_defines(sm), torch.as_tensor(kernel_params(sm, info.robot_mass)))
-    defines, params = static
+    defines, params = static if static is not None else circuit_static(model, info)
     gain = float(settings.position_error_gain)
 
     def merit(xs, us, xns, flags, vref, pref, dt):

@@ -1,6 +1,7 @@
 """Robot constants as numpy for the hand-written model kernels
 (the numpy table extraction of ops/pallas_linearize.py: ``StaticModel``,
-``make_static_model`` and ``tables_np``).
+``make_static_model`` and ``tables_np``), and the compile-time defines and
+parameter buffer that the linearize (K1) and merit (K4) kernels share.
 
 The JAX package's lane circuits in that module are the specification of the
 CUDA device functions in ``csrc/centroidal_circuit.cuh``; they are not
@@ -11,8 +12,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..model.robot_model import RobotModel
+from ..ocp.problem import NUM_CONTACTS
 
 
 @dataclasses.dataclass
@@ -64,8 +67,10 @@ def make_static_model(model: RobotModel, contact_frame_ids) -> StaticModel:
 def tables_np(sm: StaticModel) -> np.ndarray:
     """(1 + nb, nv) table stack: subtree mass per coordinate, then per body
     the "coordinate l moves body b" mask.  These are the first two groups of
-    the reference's stack; the merit circuit derives the rotation mask, the
-    Euler dw masks and the translation one-hots from the coordinate index."""
+    the reference's stack; the circuits derive its other groups from the
+    coordinate index l: the rotation mask is "moves and l >= 3", the Euler dw
+    mask of Euler coordinate i is 3 <= l < 3 + i, and the translation
+    one-hot of axis c is l == c."""
     nv, nb, nj = sm.nv, sm.nb, sm.nj
     move = np.zeros((nb, nv))
     move[:, 0:6] = 1.0
@@ -75,3 +80,35 @@ def tables_np(sm: StaticModel) -> np.ndarray:
     for j in range(nj):
         msub[6 + j] = float(np.sum(sm.mass * sm.anc[:, j]))
     return np.concatenate([msub[None], move], axis=0)
+
+
+def kernel_defines(sm: StaticModel) -> dict[str, str]:
+    """Compile-time robot topology of the circuit kernels."""
+    if len(sm.contact_body) != NUM_CONTACTS:
+        raise NotImplementedError(f"the circuit kernels take {NUM_CONTACTS} contacts, got {len(sm.contact_body)}")
+    join = lambda xs: ",".join(str(int(v)) for v in xs)
+    return {
+        "NJ": str(sm.nj),
+        "PARENT_LIST": join(sm.parent),
+        "JTYPE_LIST": join(sm.jtype),
+        "CONTACT_BODY_LIST": join(sm.contact_body),
+    }
+
+
+def kernel_params(sm: StaticModel, robot_mass: float) -> np.ndarray:
+    """The parameter buffer in the layout of csrc/centroidal_circuit.cuh."""
+    parts = [
+        sm.off_R.reshape(-1), sm.off_p.reshape(-1), sm.axis.reshape(-1), sm.mass.reshape(-1),
+        sm.com.reshape(-1), sm.inertia.reshape(-1), sm.contact_p.reshape(-1),
+        tables_np(sm).reshape(-1),  # msub (nv) | move (nb, nv)
+        np.array([sm.total_mass, float(robot_mass)]),
+    ]
+    return np.concatenate(parts).astype(np.float64)
+
+
+def circuit_static(model: RobotModel, info):
+    """(kernel_defines, kernel_params as a tensor of the model's dtype and
+    device) for the circuit kernels."""
+    sm = make_static_model(model, info.contact_frame_ids)
+    params = torch.as_tensor(kernel_params(sm, info.robot_mass), dtype=model.dtype, device=model.body_mass.device)
+    return kernel_defines(sm), params

@@ -1,13 +1,15 @@
 """Multiple-shooting Gauss-Newton SQP over an explicit scenario batch
 (solver/sqp.py counterpart; the JAX package vmaps a single-scenario solve).
 
-One iteration: structured linearization of every (scenario, node), the
-equality-constrained Riccati sweep, then the OCS2 filter line search over
-the step candidates, all evaluated at once.  ``sqp_iterations=1`` is the
-real-time iteration.  The port implements cone "soft"; "hard" and "ipm"
-raise NotImplementedError.
+One iteration: structured linearization of every (scenario, node) (the
+linearize kernel for ``linearize="pallas"``), the equality-constrained
+Riccati sweep, then the OCS2 filter line search over the step candidates,
+all evaluated at once.  ``sqp_iterations=1`` is the real-time iteration.
+The port implements cone "soft"; "hard" and "ipm" raise NotImplementedError.
 
-Every tensor argument carries the scenario batch on its leading axis B.
+Every tensor argument carries the scenario batch on its leading axis B; a
+batch of one is the single-solve (latency) path.  The solve runs where its
+tensors lie.
 """
 from __future__ import annotations
 
@@ -84,8 +86,8 @@ def _filter_accept(cost_base, viol_base, cost_step, viol_step):
 def _check_settings(info: CentroidalModelInfo, settings: OcpSettings) -> None:
     if settings.cone != "soft":
         raise NotImplementedError(f"cone={settings.cone!r}: the port implements the soft cone only")
-    if settings.linearize != "structured":
-        raise NotImplementedError(f"linearize={settings.linearize!r}: the port implements 'structured' only")
+    if settings.linearize not in ("structured", "pallas"):
+        raise NotImplementedError(f"linearize={settings.linearize!r}: the port implements 'structured' and 'pallas'")
     if settings.riccati not in ("sequential", "pallas"):
         raise NotImplementedError(f"riccati={settings.riccati!r}: the port implements 'sequential' and 'pallas'")
     if settings.merit not in ("xla", "pallas"):
@@ -106,12 +108,15 @@ def sqp_solve(
     x_warm,  # (B, N+1, nx) warm-start state trajectories
     u_warm,  # (B, N, nu)
     merit_sums=None,
+    linearize=None,
 ) -> SqpSolution:
     """Run ``settings.sqp_iterations`` Gauss-Newton iterations per scenario.
 
     merit_sums: the evaluator of ops/merit_kernel.make_merit_sums for
-    ``merit="pallas"``; built from the model when not given.  The warm-start
-    tensors are not modified."""
+    ``merit="pallas"``; linearize: the linearizer of
+    ops/linearize_kernel.make_node_linearizer for ``linearize="pallas"``;
+    each built from the model when not given.  The warm-start tensors are
+    not modified."""
     _check_settings(info, settings)
     Bb, nx = x_init.shape
     xs = x_warm.clone()
@@ -124,12 +129,19 @@ def sqp_solve(
         from ..ops.merit_kernel import make_merit_sums
 
         merit_sums = make_merit_sums(model, info, settings)
+    if linearize is None:
+        if settings.linearize == "pallas":
+            from ..ops.linearize_kernel import make_node_linearizer
+
+            linearize = make_node_linearizer(model, info, settings, Q, R)
+        else:
+            linearize = lambda x, u, xn, r: linearize_node_structured(model, info, settings, Q, R, x, u, xn, r)
     masks = eq_mask_from_flags(refs.contact_flags)
     dx0 = torch.zeros(Bb, nx, dtype=dtype, device=device)
     step_size = torch.ones(Bb, dtype=dtype, device=device)
     gains = cost = defect = eq = None
     for _ in range(settings.sqp_iterations):
-        nodes = linearize_node_structured(model, info, settings, Q, R, xs[:, :-1], us, xs[:, 1:], refs)
+        nodes = linearize(xs[:, :-1], us, xs[:, 1:], refs)
         sol = lqr(nodes, masks, dx0)
         gains = sol.K
         e_masked = masks * nodes.e

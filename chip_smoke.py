@@ -1,29 +1,50 @@
 """Drive the PyTorch/CUDA port's main path once on one GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --profile   # phases 1-2, then a profile of the B=256 solve
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: CUDA must be available; prints the card's name and power limit;
-  2. build: compiles the hand-written kernels from csrc/ with nvcc (sm_90a);
+  2. build: compiles the four hand-written kernel libraries from csrc/ with
+     nvcc (sm_90a), one nvcc process each, all started together; prints
+     ptxas's registers and spill stores per kernel;
   3. K2+K3 (Riccati sweep + rollout) vs its plain version at B=256, N=67,
      nx=nu=22, ne=16, float64 and float32;
   4. K4 (merit sums) vs its plain version at M=17,152 instances, all four
      contact modes, float64 and float32;
-  5. the batched RTI solve (make_batched_solver) at B=8, N=67 in float64,
-     kernels vs plain versions, at the batched-parity bars of the reference;
-  6. the batched RTI solve at B=256 in float32: warm-chained solves timed
-     with CUDA events, kernels vs plain, with launch counts;
+  5. K1 (whole-node linearization) vs its plain version (the structured
+     linearization) at B=256 x N=67 instances, all four contact modes, rk2
+     and euler, position-error gain 0 and 0.35, float64 and float32;
+  6. K5 (batched Gauss-Jordan) vs its plain version on the 17,152 stage-KKT
+     systems (38 x 38 | 23) of phase 3's problem, float64 and float32,
+     beside torch.linalg.solve on the same inputs;
+  7. the production batched RTI solve (make_batched_solver with linearize,
+     riccati and merit "pallas": K1, K2+K3, K4) at B=8, N=67 in float64 vs
+     the all-plain configuration, at the batched-parity bars of the reference;
+  8. the batched solve at B=256 in float32, three configurations in turns
+     (production; linearize "structured" with K2+K3 and K4; all plain):
+     warm-chained solves timed with CUDA events and with the host clock
+     (enqueue), with launch counts;
+  9. the single solve (sqp_solve at B=1 with every kernel): warm-chained
+     solves timed with CUDA events, with launch counts;
 then a JSON line of per-kernel results and, last, the device JSON line.
+With --profile, phases 1-2 are followed by torch.profiler over warm B=256
+float32 solves of the production and "structured" configurations (device
+busy share, device time by kernel, the host's synchronising runtime calls).
 
 The robot is H1-shaped (10 leg joints, 4 sole contacts, upper body welded
 into the base, ~47 kg): nx = nu = 22 and ne = 16 as for H1.  When
 $BIPEDAL_ASSETS holds the H1 URDF, H1 itself is loaded instead.  Weights,
-references and initial states are made from fixed numpy seeds.
+references and initial states are made from fixed numpy seeds.  Each
+kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its operations over 67 TFLOP/s (H100 SXM
+float32 without tensor cores; NVIDIA's data sheet).
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -34,11 +55,15 @@ import torch
 from bipedal_control_tpu_torch.model.centroidal import make_info
 from bipedal_control_tpu_torch.model.robot_model import from_description
 from bipedal_control_tpu_torch.model.urdf import JOINT_REVOLUTE, RobotDescription, load_urdf
+from bipedal_control_tpu_torch.ocp.linearize import linearize_node_structured
 from bipedal_control_tpu_torch.ocp.problem import LinearizedNode, NodeRefs, OcpSettings, weight_compensating_input
-from bipedal_control_tpu_torch.ops import merit_kernel, riccati_kernel
+from bipedal_control_tpu_torch.ops import gj_kernel, linearize_kernel, merit_kernel, riccati_kernel
+from bipedal_control_tpu_torch.ops.cuda_build import build_libraries
+from bipedal_control_tpu_torch.ops.linalg import gauss_jordan_solve
+from bipedal_control_tpu_torch.ops.static_model import circuit_static, make_static_model, tables_np
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
-from bipedal_control_tpu_torch.solver.sqp import initial_trajectory
+from bipedal_control_tpu_torch.solver.sqp import initial_trajectory, sqp_solve
 from bipedal_control_tpu_torch.utils.precision import set_full_f32_matmul
 
 H1_LEG_JOINTS = [
@@ -49,6 +74,13 @@ H1_LEG_JOINTS = [
 H1_CONTACTS = ["left_sole_1_link", "left_sole_2_link", "right_sole_1_link", "right_sole_2_link"]
 H1_URDF = "bipedal_robot_example/unitree_h1/h1_description/urdf/h1_with_sole.urdf"
 N_NODES, DT = 67, 0.015
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+CONFIGS = {  # (linearize, riccati, merit)
+    "production": ("pallas", "pallas", "pallas"),
+    "structured": ("structured", "pallas", "pallas"),
+    "plain": ("structured", "sequential", "xla"),
+}
 
 
 # ------------------------------------------------------------------ robot
@@ -191,6 +223,95 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bound(bytes_moved: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "ops": ops}
+
+
+def reset_launches():
+    for fn in (linearize_kernel.linearize_cuda, riccati_kernel.riccati_solve, merit_kernel.merit_sums_cuda,
+               gj_kernel.gauss_jordan_solve_pallas):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {"linearize": linearize_kernel.linearize_cuda.launches, "riccati": riccati_kernel.riccati_solve.launches,
+            "merit": merit_kernel.merit_sums_cuda.launches,
+            "gauss_jordan": gj_kernel.gauss_jordan_solve_pallas.launches}
+
+
+# Operation counts of the kernels' arithmetic on these shapes, read off the
+# loops of csrc/ (each add, multiply, divide and sin/cos is one operation;
+# data-dependent only through the robot's tree: revolute joints and the
+# coordinate/body pairs where "coordinate l moves body b").
+def _tree(sm):
+    rev = sum(1 for t in sm.jtype if t == JOINT_REVOLUTE)
+    moved = int(tables_np(sm)[1:].sum())
+    return rev, moved
+
+
+def _fk_fields_ops(sm) -> int:
+    rev, _ = _tree(sm)
+    fk = 31 + 203 * rev + 84 * (sm.nj - rev)
+    fields = 36 + 27 * rev + 15 * (sm.nj - rev)
+    return fk + fields
+
+
+def _flow_tail_ops(sm, nc=4) -> int:
+    """inv6, v and the flow value from the CMM."""
+    return 388 + 6 * (2 * sm.nj + 2) + 72 + 18 * nc + 7
+
+
+def k1_ops(sm, M: int, rk2: bool, nx: int, nu: int, ne: int = 16, nc: int = 4) -> float:
+    """linearize.cu: one group-parallel centroidal pass per stage (two for
+    rk2), the derivative columns per lane, then the output elements."""
+    _, moved = _tree(sm)
+    nb, nv, nj = sm.nb, sm.nv, sm.nj
+    cmm = 6 * nv * nb + 46 * moved + 85 * nv
+    one_pass = _fk_fields_ops(sm) + 108 * nb + 18 * nc + cmm + _flow_tail_ops(sm, nc)
+    lane = 3 + 135 + 81 * nj + 159 * nb + 24 * nc + 72 + 66 + 12 * nc + 13 * 3 * nc
+    deriv = nv * lane + 72 * nj
+    out_A = 3 * (6 * 20 + nv * 16) + 6 * (6 * 23 + nv * 26)
+    out_B = 12 + 3 * 12 * 3 + 3 * nj * 15 + 6 * 12 * 18 + 6 * nj * 17
+    out_C = ne * (6 * 19 + nv)
+    out_D = 12 + ne * nj * 14
+    out_e = ne * (2 * nv + 5)
+    per = (2 if rk2 else 1) * one_pass + deriv + out_A + out_B + out_C + out_D + out_e + 6 * nx
+    return float(M * per)
+
+
+def k4_ops(sm, M: int, rk2: bool, nx: int, nc: int = 4) -> float:
+    """merit.cu: one or two per-thread flow passes (subtree sums), then the
+    contact velocities and the four sums."""
+    nb, nv = sm.nb, sm.nv
+    flow = _fk_fields_ops(sm) + 133 * nb + 19 * (nb - 1) + 85 * nv + _flow_tail_ops(sm, nc)
+    per = (2 if rk2 else 1) * flow + 3 * nx + nc * nv * 21 + 4 * nx + nc * 20
+    return float(M * per)
+
+
+def k23_ops(B: int, N: int, nx: int, nu: int, ne: int) -> float:
+    """riccati.cu per stage: S A, S B, S c + s, the H blocks, the KKT's
+    Gauss-Jordan (4 operations per updated element), K's products, the S and
+    s updates and the symmetrisation; then the rollout."""
+    nk = nu + ne
+    W = nk + nx + 1
+    gj = sum(nk * (W - 1 - i) * 4 for i in range(nk))
+    stage = (2 * nx**3 + 2 * nx * nx * nu + nx * (2 * nx + 1)
+             + (nx * nx + nu * nu + nu * nx + nx + nu) * (2 * nx + 1) + nu + 3 * ne + gj
+             + (nu * nx + nu) * 2 * nu + (nx * nx + nx) * 6 * nu + 2 * nx * nx)
+    rollout = nu * (2 * nx + 2) + nx * (2 * nx + 2 * nu + 2)
+    return float(B * N * (stage + rollout))
+
+
+def k5_ops(batch: int, n: int, k: int) -> float:
+    W = n + k
+    return float(batch * sum(n * (W - 1 - i) * 4 for i in range(n)))
+
+
 # ------------------------------------------------------------------ phases
 def phase_device():
     if not torch.cuda.is_available():
@@ -205,15 +326,32 @@ def phase_device():
     return name, smi
 
 
-def phase_build(model, info):
+def ptxas_summary(report: str) -> list[str]:
+    """'<dtype>: <registers> regs, <spill stores>' per kernel entry."""
+    out, dtype, spill = [], None, ""
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '\S*?I([df])EE", ln)
+        if m:
+            dtype, spill = ("f64" if m.group(1) == "d" else "f32"), ""
+        elif dtype and "spill stores" in ln:
+            spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
+        elif dtype and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{dtype}: {regs} regs, {spill} B spill stores")
+            dtype = None
+    return out
+
+
+def phase_build(defines):
+    names = ("riccati", "merit", "linearize", "gauss_jordan")
     t0 = time.perf_counter()
-    rb = riccati_kernel.build()
-    sm = merit_kernel.make_static_model(model, info.contact_frame_ids)
-    mb = merit_kernel.build(merit_kernel.kernel_defines(sm))
+    libs = build_libraries([("riccati", "riccati.cu", {}), ("merit", "merit.cu", defines),
+                            ("linearize", "linearize.cu", defines), ("gauss_jordan", "gauss_jordan.cu", {})])
     secs = time.perf_counter() - t0
-    spills = [ln.strip() for ln in (rb.ptxas_report + mb.ptxas_report).splitlines() if "spill" in ln]
-    print(f"[2 build] riccati.cu + merit.cu for sm_90a in {secs:.1f} s "
-          f"(nvcc {rb.build_seconds:.1f} s + {mb.build_seconds:.1f} s); ptxas: {' | '.join(spills)}")
+    print(f"[2 build] riccati.cu merit.cu linearize.cu gauss_jordan.cu for sm_90a in {secs:.1f} s "
+          f"(nvcc in parallel: " + ", ".join(f"{n} {b.build_seconds:.1f} s" for n, b in zip(names, libs)) + ")")
+    for n, b in zip(names, libs):
+        print(f"[2 build] ptxas {n}: " + " | ".join(ptxas_summary(b.ptxas_report)))
     return secs
 
 
@@ -262,7 +400,12 @@ def phase_riccati(device):
             out["max_abs_err"] = max(float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref))
             out["ms"] = cuda_time_ms(lambda: riccati_kernel.riccati_solve_cuda(nodes, masks, dx0, *regs), 20)
             out["plain_ms"] = cuda_time_ms(lambda: riccati_plain(nodes, masks, dx0, regs), 3)
-    print(f"[3 riccati] float32 B={B}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
+    s = 4
+    stage_in = 2 * nx * nx + 2 * nx * nu + nu * nu + ne * nx + ne * nu + 2 * nx + nu + 2 * ne
+    stage_out = nu * nx + 2 * nu
+    out.update(bound(s * (B * N * (stage_in + stage_out) + B * nx + B * (N + 1) * nx), k23_ops(B, N, nx, nu, ne)))
+    print(f"[3 riccati] float32 B={B}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
     return out
 
 
@@ -286,7 +429,7 @@ def phase_merit(model, info, device):
     M = 1 * 256 * N_NODES
     settings = OcpSettings(integrator="rk2", position_error_gain=0.0)
     for dtype, bar, floor in ((torch.float64, 1e-10, 1e-12), (torch.float32, 1e-4, 1e-6)):
-        m = model.to(device=device, dtype=dtype)
+        m = model.to(dtype=dtype)
         fn = merit_kernel.make_merit_sums(m, info, settings)
         args = merit_instances(info, M, 3, device, dtype)
         got = fn(*args)
@@ -299,7 +442,105 @@ def phase_merit(model, info, device):
             out["max_abs_err"] = float((got.double() - ref.double()).abs().max())
             out["ms"] = cuda_time_ms(lambda: fn(*args), 20)
             out["plain_ms"] = cuda_time_ms(lambda: merit_kernel.merit_sums_plain(m, info, settings, *args), 5)
-    print(f"[4 merit] float32 M={M}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms")
+    nx, nu = info.state_dim, info.input_dim
+    sm = make_static_model(model, info.contact_frame_ids)
+    out.update(bound(4 * M * (2 * nx + nu + 12 + 1 + 4), k4_ops(sm, M, True, nx)))
+    print(f"[4 merit] float32 M={M}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
+def phase_linearize(model, info, device):
+    """K1 vs plain (ocp/linearize.py::linearize_node_structured) on B x N
+    node instances.  float64 bar 1e-9 relative to max(1, max|ref|) per
+    field, the reference kernel test's bar.  float32 bar 1e-4: both sides
+    round every product to 24 bits and sum in different orders, so they
+    differ by a few ulps of the largest entries (~1e-6 relative); a wrong
+    entry is off by 1e-2 or more."""
+    out = {}
+    B, N = 256, N_NODES
+    nx, nu = info.state_dim, info.input_dim
+    defines, _ = circuit_static(model, info)
+    launches_before = linearize_kernel.linearize_cuda.launches
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        m = model.to(dtype=dtype)
+        Q, R = (torch.as_tensor(w, dtype=dtype, device=device) for w in weights(nx, nu))
+        x, u, xn, flags, vref, pref, dt = merit_instances(info, B * N, 9, device, dtype)
+        lead = lambda a: a.reshape((B, N) + a.shape[1:])
+        refs = NodeRefs(t=lead(torch.zeros_like(dt)), dt=lead(dt), contact_flags=lead(flags), swing_vref=lead(vref),
+                        swing_pref=lead(pref), x_nom=lead(x), u_nom=lead(u))
+        xs, us, xns = lead(x), lead(u), lead(xn)
+        for integrator in ("rk2", "euler"):
+            for gain in (0.0, 0.35):
+                settings = OcpSettings(integrator=integrator, position_error_gain=gain, linearize="pallas")
+                got = linearize_kernel.make_node_linearizer(m, info, settings, Q, R)(xs, us, xns, refs)
+                ref = linearize_node_structured(m, info, settings, Q, R, xs, us, xns, refs)
+                torch.cuda.synchronize()
+                errs = {f: rel_err(getattr(got, f), getattr(ref, f)) for f in LinearizedNode._fields}
+                finite = all(bool(torch.isfinite(t).all()) for t in got)
+                print(f"[5 linearize] {str(dtype)[6:]} B={B} N={N} {integrator} gain {gain}: max rel err "
+                      + " ".join(f"{n} {v:.1e}" for n, v in errs.items()) + f" (bar {bar:g})")
+                require(finite and max(errs.values()) <= bar, f"linearize kernel disagrees in {dtype}: {errs}")
+                if dtype == torch.float32 and integrator == "rk2" and gain == 0.0:  # the main path's
+                    out["max_abs_err"] = max(float((getattr(got, f).double() - getattr(ref, f).double()).abs().max())
+                                             for f in ("A", "B", "c", "C", "D", "e"))
+        if dtype == torch.float32:
+            settings = OcpSettings(integrator="rk2", linearize="pallas")
+            params = circuit_static(m, info)[1]
+            flat = (x, u, xn, flags, vref, pref, dt)
+            out["ms"] = cuda_time_ms(lambda: linearize_kernel.linearize_cuda(params, defines, 0.0, "rk2", *flat), 20)
+            plain = lambda: linearize_node_structured(m, info, settings, Q, R, xs, us, xns, refs)
+            out["plain_ms"] = cuda_time_ms(plain, 3)
+    ne, M = 16, B * N
+    sm = make_static_model(model, info.contact_frame_ids)
+    out.update(bound(4 * M * ((2 * nx + nu + 13) + nx * nx + nx * nu + nx + ne * nx + ne * nu + ne),
+                     k1_ops(sm, M, True, nx, nu, ne)))
+    print(f"[5 linearize] float32 M={M} rk2: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}; {out['bytes'] / 1e6:.1f} MB, "
+          f"{out['ops'] / 1e9:.2f} G operations); kernel launches in this phase "
+          f"{linearize_kernel.linearize_cuda.launches - launches_before}")
+    return out
+
+
+def stage_kkt(nodes, masks, dtype):
+    """The stage-KKT systems of riccati.cu with the Hessian block taken from
+    the problem's Quu: [[Quu + r I, D'], [D, -Reg]] | [[Qux, qu], [C, e]],
+    flattened to (B N, nu + ne, nu + ne) and (B N, nu + ne, nx + 1)."""
+    dual_eps, huu_reg = _regs(dtype)
+    nu, ne = nodes.Quu.shape[-1], nodes.D.shape[-2]
+    eye = torch.eye(nu, dtype=dtype, device=nodes.Quu.device)
+    reg = masks * dual_eps + (1.0 - masks)
+    A = torch.cat([torch.cat([nodes.Quu + huu_reg * eye, nodes.D.transpose(-1, -2)], -1),
+                   torch.cat([nodes.D, -torch.diag_embed(reg)], -1)], -2)
+    B = torch.cat([torch.cat([nodes.Qux, nodes.qu[..., None]], -1), torch.cat([nodes.C, nodes.e[..., None]], -1)], -2)
+    return A.reshape(-1, nu + ne, nu + ne).contiguous(), B.reshape(-1, nu + ne, B.shape[-1]).contiguous()
+
+
+def phase_gauss_jordan(device):
+    """K5 vs plain.  float64 bar 1e-10 relative to max(1, max|ref|).  f32
+    bar 1e-3, as the Riccati kernel's: the same quasi-definite systems
+    (dual_eps 1.2e-5) solved in the same order up to fused multiply-adds
+    agree to ~1e-5; a wrong pivot step is off by O(0.1)."""
+    out = {}
+    for dtype, bar in ((torch.float64, 1e-10), (torch.float32, 1e-3)):
+        nodes, masks, _ = random_lqr(256, N_NODES, 22, 22, 16, 7, device, dtype)
+        A, B = stage_kkt(nodes, masks, dtype)
+        got = gj_kernel.gauss_jordan_solve_cuda(A, B)
+        ref = gauss_jordan_solve(A, B)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        print(f"[6 gauss-jordan] {str(dtype)[6:]} {A.shape[0]} x ({A.shape[1]} x {A.shape[2]} | {B.shape[2]}): "
+              f"max rel err {err:.2e} (bar {bar:g})")
+        require(bool(torch.isfinite(got).all()) and err <= bar, f"Gauss-Jordan kernel disagrees in {dtype}: {err:.3e}")
+        if dtype == torch.float32:
+            out["max_abs_err"] = float((got.double() - ref.double()).abs().max())
+            out["ms"] = cuda_time_ms(lambda: gj_kernel.gauss_jordan_solve_cuda(A, B), 20)
+            out["plain_ms"] = cuda_time_ms(lambda: gauss_jordan_solve(A, B), 5)
+            out["library_ms"] = cuda_time_ms(lambda: torch.linalg.solve(A, B), 20)
+            batch, n, k = A.shape[0], A.shape[1], B.shape[2]
+    out.update(bound(4 * batch * (n * n + 2 * n * k), k5_ops(batch, n, k)))
+    print(f"[6 gauss-jordan] float32: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+          f"torch.linalg.solve {out['library_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
     return out
 
 
@@ -313,81 +554,187 @@ def solver_inputs(model, info, settings, B: int, seed: int, device, dtype):
     return refs, T(t_nodes), T(x_init), xs, us
 
 
-def main_settings(riccati: str, merit: str) -> OcpSettings:
+def main_settings(config: str) -> OcpSettings:
+    linearize, riccati, merit = CONFIGS[config]
     return OcpSettings(
         dt=DT, horizon=N_NODES * DT, sqp_iterations=1, linesearch_alphas=(1.0,), cone="soft",
-        integrator="rk2", linearize="structured", riccati=riccati, merit=merit,
+        integrator="rk2", linearize=linearize, riccati=riccati, merit=merit,
     )
 
 
 def phase_parity(model, info, device):
-    """Main path in float64 at B=8: kernels vs plain versions, at the bars of
-    the reference's batched-parity test (x/u/cost/defect/eq 1e-5, K 1e-3,
-    step_size exact)."""
+    """The production configuration (K1, K2+K3, K4) in float64 at B=8 vs
+    the all-plain configuration, at the bars of the reference's
+    batched-parity test (x/u/cost/defect/eq 1e-5, K 1e-3, step_size exact)."""
     nx, nu = info.state_dim, info.input_dim
     Q, R = weights(nx, nu)
     sols = {}
-    for name, (ric, mer) in (("kernels", ("pallas", "pallas")), ("plain", ("sequential", "xla"))):
-        settings = main_settings(ric, mer)
-        solver = make_batched_solver(model, info, settings, Q, R).to(device=device, dtype=torch.float64)
-        sols[name] = solver(*solver_inputs(model, info, settings, 8, 11, device, torch.float64))
+    for config in ("production", "plain"):
+        settings = main_settings(config)
+        solver = make_batched_solver(model, info, settings, Q, R).to(dtype=torch.float64)
+        sols[config] = solver(*solver_inputs(model, info, settings, 8, 11, device, torch.float64))
     torch.cuda.synchronize()
-    a, b = sols["kernels"], sols["plain"]
+    a, b = sols["production"], sols["plain"]
     errs = {n: rel_err(getattr(a, n), getattr(b, n)) for n in ("x_traj", "u_traj", "K", "cost", "defect_norm", "eq_norm")}
     bars = {"x_traj": 1e-5, "u_traj": 1e-5, "K": 1e-3, "cost": 1e-5, "defect_norm": 1e-5, "eq_norm": 1e-5}
     same_step = bool(torch.equal(a.step_size, b.step_size))
-    print("[5 parity] float64 B=8 kernels vs plain: " + " ".join(f"{n} {v:.2e}" for n, v in errs.items())
+    print("[7 parity] float64 B=8 production vs plain: " + " ".join(f"{n} {v:.2e}" for n, v in errs.items())
           + f" step_size equal {same_step} ({a.step_size.tolist()})")
-    require(all(errs[n] <= bars[n] for n in bars) and same_step, f"main path f64 parity failed: {errs}")
+    require(all(errs[n] <= bars[n] for n in bars) and same_step, f"production f64 parity failed: {errs}")
 
 
-def phase_main(model, info, device, ric, mer):
-    """Main path at B=256 in float32: 3 warm-up solves, then 10 warm-chained
-    solves timed with CUDA events, kernels and plain versions in turn.
-    ric/mer: phases 3 and 4's kernel and plain times, taken at these shapes
-    (B=256, N=67; M = 1 candidate x 256 x 67)."""
+def phase_main(model, info, device):
+    """The batched solve at B=256 in float32, three configurations in turns
+    (production, structured, plain, then plain, structured, production):
+    per run 3 warm-up solves, then 10 warm-chained solves timed with CUDA
+    events (device time per solve) and with the host clock without a
+    synchronise (enqueue time per solve).  Launch counts are set to 0
+    just before the 10 solves and read just after."""
     nx, nu = info.state_dim, info.input_dim
     Q, R = weights(nx, nu)
     B, warm, steps = 256, 3, 10
-    res = {}
-    counts = {}
-    for name, modes in (("kernels", ("pallas", "pallas")), ("plain", ("sequential", "xla"))):
-        settings = main_settings(*modes)
-        solver = make_batched_solver(model, info, settings, Q, R).to(device=device, dtype=torch.float32)
-        refs, t_nodes, x_init, xs, us = solver_inputs(model, info, settings, B, 5, device, torch.float32)
+    solvers = {c: make_batched_solver(model, info, main_settings(c), Q, R).to(dtype=torch.float32) for c in CONFIGS}
+    runs = []
+    for config in ("production", "structured", "plain", "plain", "structured", "production"):
+        solver = solvers[config]
+        refs, t_nodes, x_init, xs, us = solver_inputs(model, info, main_settings(config), B, 5, device, torch.float32)
         for _ in range(warm):
             sol = solver(refs, t_nodes, x_init, xs, us)
             xs, us = sol.x_traj, sol.u_traj
         torch.cuda.synchronize()
-        if name == "kernels":
-            riccati_kernel.riccati_solve.launches = 0
-            merit_kernel.merit_sums_cuda.launches = 0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        reset_launches()
+        t0 = time.perf_counter()
         start.record()
         for _ in range(steps):
             sol = solver(refs, t_nodes, x_init, xs, us)
             xs, us = sol.x_traj, sol.u_traj
         end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
         torch.cuda.synchronize()
-        if name == "kernels":
-            counts = {"riccati": riccati_kernel.riccati_solve.launches, "merit": merit_kernel.merit_sums_cuda.launches}
+        counts = read_launches()
         ms = start.elapsed_time(end) / steps
         finite = all(bool(torch.isfinite(getattr(sol, f)).all()) for f in ("x_traj", "u_traj", "K", "cost", "defect_norm", "eq_norm"))
-        require(finite, f"{name}: non-finite solver output")
+        require(finite, f"{config}: non-finite solver output")
         require(tuple(sol.x_traj.shape) == (B, N_NODES + 1, nx) and tuple(sol.K.shape) == (B, N_NODES, nu, nx),
-                f"{name}: unexpected output shapes")
-        res[name] = {"ms_per_solve": ms, "solves_per_s": B * 1000.0 / ms,
-                     "defect_l1": float(sol.defect_norm.double().mean()),
-                     "last_step_accepted": float((sol.step_size > 0).double().mean())}
-    print(f"[6 main] float32 B={B}: kernels {res['kernels']['solves_per_s']:.1f} solves/s "
-          f"({res['kernels']['ms_per_solve']:.3f} ms/solve), plain {res['plain']['solves_per_s']:.1f} solves/s "
-          f"({res['plain']['ms_per_solve']:.3f} ms/solve); defect_l1 mean kernels {res['kernels']['defect_l1']:.3e} "
-          f"plain {res['plain']['defect_l1']:.3e}; share of scenarios whose last step was accepted "
-          f"{res['kernels']['last_step_accepted']:.3f} (0 once converged: the filter keeps the iterate); "
-          f"launches {counts}; kernel vs plain ms: riccati {ric['ms']:.3f} vs {ric['plain_ms']:.3f}, "
-          f"merit {mer['ms']:.3f} vs {mer['plain_ms']:.3f}")
-    require(counts["riccati"] > 0 and counts["merit"] > 0, f"a kernel of the path was not launched: {counts}")
-    return res, counts
+                f"{config}: unexpected output shapes")
+        run = {"config": config, "ms_per_solve": ms, "solves_per_s": B * 1000.0 / ms, "host_enqueue_ms": host_ms,
+               "defect_l1": float(sol.defect_norm.double().mean()),
+               "last_step_accepted": float((sol.step_size > 0).double().mean()), "launches": counts}
+        runs.append(run)
+        print(f"[8 main] float32 B={B} {config} {CONFIGS[config]}: {run['solves_per_s']:.1f} solves/s "
+              f"({ms:.3f} ms/solve on CUDA events, host enqueue {host_ms:.3f} ms/solve); defect_l1 mean "
+              f"{run['defect_l1']:.4e}; share of scenarios whose last step was accepted "
+              f"{run['last_step_accepted']:.3f}; launches {counts}")
+        if config == "production":
+            require(counts["linearize"] > 0 and counts["riccati"] > 0 and counts["merit"] > 0,
+                    f"a kernel of the production path was not launched: {counts}")
+    plain = [r["defect_l1"] for r in runs if r["config"] == "plain"]
+    for r in runs:
+        if r["config"] == "production":
+            require(abs(r["defect_l1"] - plain[0]) <= 0.1 * plain[0],
+                    f"production defect_l1 {r['defect_l1']:.4e} not within 10% of plain {plain[0]:.4e}")
+    return runs
+
+
+def phase_single(model, info, device):
+    """The single solve: sqp_solve at B=1 with every kernel (K1, K2+K3, K4),
+    its linearizer and merit evaluator built once; 3 warm-up and 10
+    warm-chained solves under CUDA events.  Informational: no bar."""
+    nx, nu = info.state_dim, info.input_dim
+    settings = main_settings("production")
+    m = model.to(dtype=torch.float32)
+    Q, R = (torch.as_tensor(w, dtype=torch.float32, device=device) for w in weights(nx, nu))
+    static = circuit_static(m, info)
+    linearize = linearize_kernel.make_node_linearizer(m, info, settings, Q, R, static=static)
+    merit = merit_kernel.make_merit_sums(m, info, settings, static=static)
+    refs, t_nodes, x_init, xs, us = solver_inputs(model, info, settings, 1, 13, device, torch.float32)
+    solve = lambda xs, us: sqp_solve(m, info, settings, Q, R, refs, t_nodes, x_init, xs, us,
+                                     merit_sums=merit, linearize=linearize)
+    for _ in range(3):
+        sol = solve(xs, us)
+        xs, us = sol.x_traj, sol.u_traj
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(10):
+        sol = solve(xs, us)
+        xs, us = sol.x_traj, sol.u_traj
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 10
+    torch.cuda.synchronize()
+    counts = read_launches()
+    ms = start.elapsed_time(end) / 10
+    require(all(bool(torch.isfinite(t).all()) for t in (sol.x_traj, sol.u_traj, sol.K)), "B=1: non-finite output")
+    require(counts["linearize"] > 0, f"B=1: the linearize kernel was not launched: {counts}")
+    print(f"[9 single] float32 B=1 sqp_solve, every kernel: {ms:.3f} ms/solve on CUDA events, host enqueue "
+          f"{host_ms:.3f} ms/solve; launches {counts}")
+    return {"ms_per_solve": ms, "host_enqueue_ms": host_ms, "launches": counts}
+
+
+def phase_profile(model, info, device):
+    """torch.profiler over 3 warm-chained B=256 float32 solves after 3
+    warm-up solves, for the production and "structured" configurations:
+    wall time per solve (host clock, ending in a synchronise), device busy
+    time per solve (union of the kernel intervals), the busy share of the
+    kernels' span, device time per solve by kernel, and the host's calls
+    that wait for the device or copy (cudaStreamSynchronize,
+    cudaDeviceSynchronize, cudaMemcpyAsync) per solve."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    nx, nu = info.state_dim, info.input_dim
+    Q, R = weights(nx, nu)
+    B, reps = 256, 3
+    for config in ("production", "structured"):
+        solver = make_batched_solver(model, info, main_settings(config), Q, R).to(dtype=torch.float32)
+        refs, t_nodes, x_init, xs, us = solver_inputs(model, info, main_settings(config), B, 5, device, torch.float32)
+        for _ in range(3):
+            sol = solver(refs, t_nodes, x_init, xs, us)
+            xs, us = sol.x_traj, sol.u_traj
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                sol = solver(refs, t_nodes, x_init, xs, us)
+                xs, us = sol.x_traj, sol.u_traj
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        events = prof.events()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA)
+        require(len(spans) > 0, "the profiler recorded no device activity")
+        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+        for s0, e0 in spans[1:]:
+            if s0 > cur_e:
+                busy, cur_s = busy + cur_e - cur_s, s0
+            cur_e = max(cur_e, e0)
+        busy += cur_e - cur_s
+        span = spans[-1][1] - spans[0][0]
+        by_name = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA:
+                key = e.name[:48]
+                by_name[key] = by_name.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        host = {}
+        for e in events:
+            if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync"):
+                n, t = host.get(e.name, (0, 0.0))
+                host[e.name] = (n + 1, t + (e.time_range.end - e.time_range.start) / 1e3)
+        print(f"[profile] float32 B={B} {config}: wall {wall:.3f} ms/solve, device busy {busy / 1e3 / reps:.3f} "
+              f"ms/solve, busy share {busy / span:.3f} of the kernels' span ({span / 1e3 / reps:.3f} ms/solve), "
+              f"{len(spans) / reps:.0f} device activities/solve")
+        print(f"[profile] {config} device ms/solve by kernel: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+        print(f"[profile] {config} host runtime calls per solve: "
+              + "; ".join(f"{k} {n / reps:.1f} x, {t / reps:.3f} ms" for k, (n, t) in sorted(host.items())))
+
+
+def kernel_entry(name, source, replaces, launches, res):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
 
 
 def main():
@@ -398,20 +745,27 @@ def main():
     model = from_description(desc)
     info = make_info(model, H1_CONTACTS)
     print(f"[robot] {robot}: nj={info.nj} nx={info.state_dim} nu={info.input_dim} mass={info.robot_mass:.2f} kg")
-    phase_build(model, info)
+    phase_build(circuit_static(model, info)[0])
+    if "--profile" in sys.argv[1:]:
+        return phase_profile(model, info, device)
     ric = phase_riccati(device)
     mer = phase_merit(model, info, device)
+    lin = phase_linearize(model, info, device)
+    gj = phase_gauss_jordan(device)
     phase_parity(model, info, device)
-    res, counts = phase_main(model, info, device, ric, mer)
+    runs = phase_main(model, info, device)
+    phase_single(model, info, device)
+    counts = runs[0]["launches"]  # the first production run at B=256: 10 solves
+    src = "bipedal_control_tpu_torch/csrc/"
     kernels = [
-        {"name": "riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)", "route": "cuda",
-         "source": "bipedal_control_tpu_torch/csrc/riccati.cu",
-         "replaces": "bipedal_control_tpu/ops/pallas_riccati.py:281",
-         "launches": counts["riccati"], "max_abs_err": ric["max_abs_err"], "ms": ric["ms"], "plain_ms": ric["plain_ms"]},
-        {"name": "merit sums (K4)", "route": "cuda",
-         "source": "bipedal_control_tpu_torch/csrc/merit.cu",
-         "replaces": "bipedal_control_tpu/ops/pallas_merit.py:253",
-         "launches": counts["merit"], "max_abs_err": mer["max_abs_err"], "ms": mer["ms"], "plain_ms": mer["plain_ms"]},
+        kernel_entry("whole-node linearization (K1)", src + "linearize.cu",
+                     "bipedal_control_tpu/ops/pallas_linearize_kernel.py:493", counts["linearize"], lin),
+        kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
+                     src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
+        kernel_entry("merit sums (K4)", src + "merit.cu", "bipedal_control_tpu/ops/pallas_merit.py:253",
+                     counts["merit"], mer),
+        kernel_entry("batched Gauss-Jordan solve (K5; no production caller)", src + "gauss_jordan.cu",
+                     "bipedal_control_tpu/ops/pallas_gj.py:77", counts["gauss_jordan"], gj),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -6,9 +6,13 @@ on a GPU machine it runs on its own:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
-float64 bars: 1e-9 for the Riccati sweep (as the reference's kernel test),
-rtol 1e-10 for the merit sums; the solver as a whole at the batched-parity
-bars (1e-5, K 1e-3, step_size exact).
+float64 bars: 1e-9 for the Riccati sweep and the linearization (as the
+reference's kernel tests), rtol 1e-10 for the merit sums, 1e-10 for the
+Gauss-Jordan solve; the solver as a whole at the batched-parity bars (1e-5,
+K 1e-3, step_size exact).  The float32 linearization is held at 1e-4
+relative to max(1, max|ref|): both sides round every product to 24 bits, so
+they differ by a few float32 ulps of the largest entries, far below 1e-4,
+while a wrong entry is off by O(1e-2) or more.
 """
 import numpy as np
 import pytest
@@ -17,8 +21,10 @@ import torch
 from bipedal_control_tpu_torch.model.centroidal import make_info
 from bipedal_control_tpu_torch.model.robot_model import from_description
 from bipedal_control_tpu_torch.model.urdf import JOINT_PRISMATIC, JOINT_REVOLUTE, RobotDescription
+from bipedal_control_tpu_torch.ocp.linearize import linearize_node_structured
 from bipedal_control_tpu_torch.ocp.problem import LinearizedNode, NodeRefs, OcpSettings
-from bipedal_control_tpu_torch.ops import merit_kernel, riccati_kernel
+from bipedal_control_tpu_torch.ops import gj_kernel, linearize_kernel, merit_kernel, riccati_kernel
+from bipedal_control_tpu_torch.ops.linalg import gauss_jordan_solve
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
 
@@ -30,7 +36,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _biped():
+def _biped(device):
     """4-joint biped with revolute and prismatic joints and skewed axes."""
     rot = lambda a, t: (lambda K: np.eye(3) + np.sin(t) * K + (1 - np.cos(t)) * K @ K)(
         np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]) / np.linalg.norm(a)
@@ -52,7 +58,7 @@ def _biped():
         frame_R=np.stack([rot([0, 1, 0], 0.05), rot([0, 1, 0], -0.05), rot([1, 0, 0], 0.04), np.eye(3)]),
         frame_p=np.array([[0.09, 0, -0.33], [-0.06, 0.01, -0.33], [0.09, -0.01, -0.31], [-0.06, 0, -0.31]]),
     )
-    model = from_description(desc)
+    model = from_description(desc, device=device)
     return model, make_info(model, ["lt", "lh", "rt", "rh"])
 
 
@@ -87,8 +93,7 @@ def test_riccati_kernel_matches_plain(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("integrator", ["rk2", "euler"])
 def test_merit_kernel_matches_plain(cuda, integrator):
-    model, info = _biped()
-    m = model.to(device=cuda)
+    m, info = _biped(cuda)
     settings = OcpSettings(integrator=integrator, position_error_gain=0.35)
     rng = np.random.default_rng(1)
     M, nx, nu = 300, info.state_dim, info.input_dim
@@ -107,9 +112,67 @@ def test_merit_kernel_matches_plain(cuda, integrator):
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
 
 
+def _nodes(rng, info, M, device, dtype):
+    nx, nu = info.state_dim, info.input_dim
+    x = rng.normal(scale=0.4, size=(M, nx))
+    x[:, 8] += 0.6
+    u = rng.normal(size=(M, nu))
+    u[:, 2:12:3] += 30.0
+    flags = np.stack([(np.arange(M) >> k) & 1 for k in range(4)], axis=1).astype(float)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    refs = NodeRefs(
+        t=T(np.zeros(M)), dt=T(rng.choice([0.015, 0.02, 0.035], size=M)), contact_flags=T(flags),
+        swing_vref=T(rng.normal(scale=0.3, size=(M, 4))), swing_pref=T(rng.normal(scale=0.05, size=(M, 4))),
+        x_nom=T(x + rng.normal(scale=0.1, size=(M, nx))), u_nom=T(u + rng.normal(scale=0.5, size=(M, nu))),
+    )
+    return T(x), T(u), T(x + rng.normal(scale=0.05, size=(M, nx))), refs
+
+
 @pytest.mark.gpu
-def test_batched_solver_kernels_match_plain(cuda):
-    model, info = _biped()
+@pytest.mark.parametrize("dtype,integrator", [(torch.float64, "rk2"), (torch.float64, "euler"), (torch.float32, "rk2")])
+def test_linearize_kernel_matches_plain(cuda, dtype, integrator):
+    model, info = _biped(cuda)
+    model = model.to(dtype=dtype)
+    settings = OcpSettings(integrator=integrator, position_error_gain=0.35)
+    nx, nu = info.state_dim, info.input_dim
+    Q = torch.diag(torch.linspace(1.0, 3.0, nx, dtype=dtype, device=cuda))
+    R = torch.diag(torch.linspace(0.1, 0.5, nu, dtype=dtype, device=cuda))
+    xs, us, xns, refs = _nodes(np.random.default_rng(4), info, 300, cuda, dtype)
+    before = linearize_kernel.linearize_cuda.launches
+    got = linearize_kernel.make_node_linearizer(model, info, settings, Q, R)(xs, us, xns, refs)
+    assert linearize_kernel.linearize_cuda.launches == before + 1
+    want = linearize_node_structured(model, info, settings, Q, R, xs, us, xns, refs)
+    bar = 1e-9 if dtype == torch.float64 else 1e-4
+    for name in want._fields:
+        g, w = getattr(got, name).double(), getattr(want, name).double()
+        assert float((g - w).abs().max()) / max(1.0, float(w.abs().max())) < bar, name
+
+
+@pytest.mark.gpu
+def test_gauss_jordan_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(5)
+    batch, n, m, k = 40, 14, 4, 6
+    W = rng.normal(size=(batch, n - m, n - m))
+    A = np.zeros((batch, n, n))
+    A[:, : n - m, : n - m] = W @ np.swapaxes(W, 1, 2) + np.eye(n - m)
+    D = rng.normal(size=(batch, m, n - m))
+    A[:, n - m :, : n - m] = D
+    A[:, : n - m, n - m :] = np.swapaxes(D, 1, 2)
+    A[:, n - m :, n - m :] = -0.5 * np.eye(m)
+    A, B = torch.as_tensor(A, device=cuda), torch.as_tensor(rng.normal(size=(batch, n, k)), device=cuda)
+    before = gj_kernel.gauss_jordan_solve_pallas.launches
+    got = gj_kernel.gauss_jordan_solve_pallas(A, B)
+    assert gj_kernel.gauss_jordan_solve_pallas.launches == before + 1
+    want = gauss_jordan_solve(A, B)
+    assert float((got - want).abs().max()) / max(1.0, float(want.abs().max())) < 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("linearize", ["structured", "pallas"])
+def test_batched_solver_kernels_match_plain(cuda, linearize):
+    """riccati and merit 'pallas' (with linearize 'pallas': the production
+    configuration, K1 + K2K3 + K4) against the all-plain configuration."""
+    model, info = _biped(cuda)
     nx, nu = info.state_dim, info.input_dim
     B, N = 3, 6
     rng = np.random.default_rng(2)
@@ -127,9 +190,10 @@ def test_batched_solver_kernels_match_plain(cuda):
     args = (refs, T(np.zeros((B, N + 1))), T(xs[:, 0] + rng.normal(scale=0.02, size=(B, nx))), T(xs), T(us))
     Q, R = np.diag(np.linspace(1.0, 3.0, nx)), np.diag(np.linspace(0.1, 0.5, nu))
     sols = []
-    for ric, mer in (("pallas", "pallas"), ("sequential", "xla")):
-        settings = OcpSettings(position_error_gain=0.35, riccati=ric, merit=mer, linesearch_alphas=(1.0, 0.5))
-        sols.append(make_batched_solver(model, info, settings, Q, R).to(device=cuda)(*args))
+    for lin, ric, mer in ((linearize, "pallas", "pallas"), ("structured", "sequential", "xla")):
+        settings = OcpSettings(position_error_gain=0.35, linearize=lin, riccati=ric, merit=mer,
+                               linesearch_alphas=(1.0, 0.5))
+        sols.append(make_batched_solver(model, info, settings, Q, R)(*args))
     for name, tol in (("x_traj", 1e-5), ("u_traj", 1e-5), ("K", 1e-3), ("cost", 1e-5), ("defect_norm", 1e-5)):
         g, w = getattr(sols[0], name), getattr(sols[1], name)
         assert float((g - w).abs().max()) / max(1.0, float(w.abs().max())) < tol, name
@@ -143,7 +207,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     nodes, masks, dx0 = _lqr(np.random.default_rng(0), 1, 2, 3, 2, 1, "cpu", torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         riccati_kernel.riccati_solve_cuda(nodes, masks, dx0, 1e-9, 1e-9)
-    model, info = _biped()
     z = lambda *s: torch.zeros(*s, dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         merit_kernel.merit_sums_cuda(z(10), {}, 0.0, "rk2", z(2, 16), z(2, 16), z(2, 16), z(2, 4), z(2, 4), z(2, 4), z(2))

@@ -30,7 +30,9 @@ from test_torch_model import _check
 @pytest.fixture(scope="module")
 def problem():
     model, info = tiny_biped()
-    tm = convert.model_from_numpy({f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)})
+    tm = convert.model_from_numpy(
+        {f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)}, device="cpu"
+    )
     ti = convert.info_from_numpy(dataclasses.asdict(info))
     xs, us, xns, refs = _nodes(info, np.random.default_rng(3))
     nx, nu = info.state_dim, info.input_dim
@@ -42,7 +44,7 @@ def problem():
 def _port_args(ti, settings, Q, R, data):
     xs, us, xns, refs = data
     T = lambda a: torch.as_tensor(np.array(a))
-    tref = convert.refs_from_numpy({k: np.asarray(v) for k, v in refs._asdict().items()})
+    tref = convert.refs_from_numpy({k: np.asarray(v) for k, v in refs._asdict().items()}, device="cpu")
     ts = convert.settings_from_numpy(dataclasses.asdict(settings))
     return ts, T(Q), T(R), T(xs), T(us), T(xns), tref
 

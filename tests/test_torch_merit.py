@@ -38,7 +38,9 @@ def _instances(info, m, seed):
 @pytest.mark.parametrize("integrator", ["rk2", "euler"])
 def test_merit_sums_match_reference_node_eval(integrator):
     model, info = tiny_biped()
-    tm = convert.model_from_numpy({f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)})
+    tm = convert.model_from_numpy(
+        {f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)}, device="cpu"
+    )
     ti = convert.info_from_numpy(dataclasses.asdict(info))
     settings = JOcpSettings(position_error_gain=0.35, integrator=integrator)
     m = 12
@@ -66,7 +68,9 @@ def test_merit_sums_match_reference_node_eval(integrator):
 
 def test_merit_kernel_rejects_what_it_does_not_implement():
     model, info = tiny_biped()
-    tm = convert.model_from_numpy({f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)})
+    tm = convert.model_from_numpy(
+        {f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)}, device="cpu"
+    )
     ti = convert.info_from_numpy(dataclasses.asdict(info))
     from bipedal_control_tpu_torch.ocp.problem import OcpSettings
 

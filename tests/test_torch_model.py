@@ -40,7 +40,9 @@ def _check(name, got, ref, tol=TOL):
 @pytest.fixture(scope="module")
 def models():
     model, info = tiny_biped()
-    tm = convert.model_from_numpy({f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)})
+    tm = convert.model_from_numpy(
+        {f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)}, device="cpu"
+    )
     ti = convert.info_from_numpy(dataclasses.asdict(info))
     return model, info, tm, ti
 

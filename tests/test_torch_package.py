@@ -14,6 +14,8 @@ import torch
 from bipedal_control_tpu.ocp.problem import OcpSettings as JOcpSettings
 from bipedal_control_tpu_torch import convert
 from bipedal_control_tpu_torch.ocp.problem import OcpSettings
+from bipedal_control_tpu_torch.ops import gj_kernel, linearize_kernel
+from bipedal_control_tpu_torch.parallel import batch_solver
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
 
 from test_lanes_rti import _batched_problem
@@ -23,7 +25,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port(model, info):
-    tm = convert.model_from_numpy({f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)})
+    tm = convert.model_from_numpy(
+        {f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)}, device="cpu"
+    )
     return tm, convert.info_from_numpy(dataclasses.asdict(info))
 
 
@@ -44,10 +48,10 @@ def test_convert_round_trips():
     assert dataclasses.asdict(convert.settings_from_numpy(dataclasses.asdict(js))) == dataclasses.asdict(js)
     assert [f.name for f in dataclasses.fields(OcpSettings)] == [f.name for f in dataclasses.fields(JOcpSettings)]
     refs = _batched_problem(model, info)[0]
-    trefs = convert.refs_from_numpy({k: np.asarray(v) for k, v in refs._asdict().items()})
+    trefs = convert.refs_from_numpy({k: np.asarray(v) for k, v in refs._asdict().items()}, device="cpu")
     for k, v in refs._asdict().items():
         np.testing.assert_array_equal(getattr(trefs, k).numpy(), np.asarray(v))
-    Q, R = convert.weights_from_numpy(np.eye(info.state_dim), 2 * np.eye(info.input_dim))
+    Q, R = convert.weights_from_numpy(np.eye(info.state_dim), 2 * np.eye(info.input_dim), device="cpu")
     assert Q.dtype == torch.float64 and float(R[0, 0]) == 2.0
 
 
@@ -57,7 +61,7 @@ def test_precision_policy_is_set_by_the_solver():
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
-    make_batched_solver(tm, ti, OcpSettings(), np.eye(info.state_dim), np.eye(info.input_dim))
+    make_batched_solver(tm, ti, OcpSettings(), np.eye(info.state_dim), np.eye(info.input_dim), device="cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
@@ -87,11 +91,46 @@ def test_cuda_request_without_cuda_raises_and_does_not_compute():
     model, info = tiny_biped()
     tm, ti = _port(model, info)
     settings = OcpSettings(riccati="pallas", merit="pallas", linesearch_alphas=(1.0,))
-    solver = make_batched_solver(tm, ti, settings, np.eye(info.state_dim), np.eye(info.input_dim))
+    solver = make_batched_solver(tm, ti, settings, np.eye(info.state_dim), np.eye(info.input_dim), device="cpu")
     with pytest.raises((RuntimeError, AssertionError)):
         solver.to("cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         tm.to(device="cuda")
+
+
+@pytest.mark.parametrize("linearize", ["structured", "pallas"])
+def test_entry_points_default_to_the_card(monkeypatch, linearize):
+    """Without CUDA, make_batched_solver asked for no device raises and
+    builds nothing on the CPU (both its dispatch paths), and so do the
+    model and parameter helpers."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: this checks the behaviour without it")
+    model, info = tiny_biped()
+    tm, ti = _port(model, info)
+    built = []
+    monkeypatch.setattr(batch_solver, "BatchedSolver", lambda *a, **kw: built.append(a))
+    settings = OcpSettings(linearize=linearize, riccati="pallas", merit="pallas", linesearch_alphas=(1.0,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batched_solver(tm, ti, settings, np.eye(info.state_dim), np.eye(info.input_dim))
+    assert built == []
+    fields = {f.name: np.asarray(getattr(model, f.name)) for f in dataclasses.fields(model)}
+    with pytest.raises(RuntimeError):
+        convert.model_from_numpy(fields)
+    with pytest.raises(RuntimeError):
+        convert.weights_from_numpy(np.eye(2), np.eye(2))
+
+
+@pytest.mark.parametrize("kernel", ["linearize", "gauss_jordan"])
+def test_k1_k5_wrappers_refuse_cuda_less_calls(kernel):
+    """The linearize (K1) and Gauss-Jordan (K5) kernels' CUDA entries raise
+    on CPU tensors instead of computing there."""
+    z = lambda *s: torch.zeros(*s, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        if kernel == "linearize":
+            linearize_kernel.linearize_cuda(z(10), {}, 0.0, "rk2", z(2, 16), z(2, 16), z(2, 16), z(2, 4), z(2, 4),
+                                            z(2, 4), z(2))
+        else:
+            gj_kernel.gauss_jordan_solve_cuda(z(2, 3, 3), z(2, 3, 1))
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
