@@ -3,6 +3,9 @@
 //   for each pivot i:  aug -= (aug[:, i] - e_i) (aug[i, :] / aug[i, i])
 // Safe without pivoting for the quasi-definite systems the solver builds.
 //
+// K5's alone (gauss_jordan.cu): riccati.cu keeps its stage KKT in registers
+// and takes two pivots per barrier.
+//
 // aug is rows x W, row-major; pivots run over i = 0..rows-1.  Column i of
 // aug is not updated by pivot i (only columns i+1.. are read afterwards).
 // The pivot row and column of step i are read from double buffers that

@@ -1,297 +1,713 @@
-// Constrained Riccati backward sweep + forward rollout, one CTA per scenario.
+// Constrained Riccati backward sweep + forward rollout, one CTA per scenario,
+// with the stage shapes compiled in (RICCATI_NX, RICCATI_NU, RICCATI_NE).
 //
 // Replaces the TPU kernels of bipedal_control_tpu/ops/pallas_riccati.py:
-// _backward_kernel (K2) and _forward_kernel (K3), reached through
-// riccati_backward_pallas / riccati_solve_pallas.  Stage math is that of
-// solver/riccati.py::_stage_kkt and solve_lqr:
+// _backward_kernel (:72, K2) and _forward_kernel (:206, K3), reached through
+// riccati_backward_pallas / riccati_solve_pallas (and their prelaned
+// entries).  Stage math is that of solver/riccati.py::_stage_kkt and
+// riccati_plain:
 //
 //   H_xx = Qxx + A'SA,  H_uu = Quu + B'SB,  H_ux = Qux + B'SA,
 //   h_x = qx + A'(S c + s),  h_u = qu + B'(S c + s)
 //   [H_uu + r I  D' | H_ux  h_u]      pivot-free Gauss-Jordan (quasi-definite)
 //   [D       -Reg  | C     e  ]  ->  K, k
-//   S = H_xx + K'H_uu K - K'H_ux - H_ux'K (symmetrized), s = ...
+//   U = H_xx + K'H_uu K - K'H_ux - H_ux'K,  S = (U + U')/2,  s = ...
 //   forward: du = -K dx - k,  dx' = A dx + B du + c
 //
-// Design.  On the TPU the scenario batch sat on the 128 vector lanes and the
-// stage axis was a sequential grid dimension carrying (S, s) in VMEM scratch.
-// On a GPU one thread per scenario would be only B threads, so each scenario
-// gets a CTA, and its threads split every small product by output element.
-// The stage loop N-1..0 runs inside the block with S, s and the 38 x 61
-// augmented KKT in shared memory (the VMEM carry's counterpart); Gauss-Jordan
-// takes one __syncthreads() per pivot by double-buffering the next pivot row
-// and column.  The forward rollout (K3) runs in the same CTA afterwards, so
-// K and k are never re-read by another launch.
+// Bound.  At B = 256, N = 67 (nx = nu = 22, ne = 16) the sweep needs 5.26 G
+// operations and 259 MB of traffic: 0.079 ms at the card's float32 rate.  The
+// time is one CTA's serial chain of 67 stages, each a run of barrier-separated
+// steps of a few hundred operations per thread, so the design shortens each
+// step rather than adding parallelism.
 //
-// Bound: latency.  Per stage the block does ~38 + 8 barrier-separated steps
-// of a few hundred flops per thread, and B = 256 CTAs fill the 132 SMs only
-// twice over; device-memory traffic is one read of the stage tensors.  The
-// TPU kernel's unit-Huu padding of empty batch lanes has no counterpart:
-// there are no padding lanes, every CTA is a real scenario.
+// Design (one 256-thread CTA per scenario, two CTAs per SM).
+// - Shapes are compile-time: every loop has constant bounds, every thread has a
+//   fixed (row, column) tile, dot products of length NX or NU are unrolled, and
+//   no index inside the stage or rollout loops is divided by a runtime value.
+// - Small products are register-tiled: a thread owns 2 rows x a few columns of
+//   its output and reuses each operand it reads from shared memory across the
+//   tile (P = S [B | A | c] + [0 | 0 | s] is 253 tiles of 2 x 2 at H1's shapes).
+//   H_uu, H_ux and h_u are written straight into their blocks of the
+//   augmented KKT in shared memory, beside the stage's D', D, C, e and -Reg.
+// - The elimination is register-resident: thread (cg, rg) loads rows 2rg,
+//   2rg+1 x columns CT cg .. CT cg + CT-1 of the NKP x W augmented matrix (2 x 6
+//   at H1's shapes, 209 threads, column-group major so that whole warps fall
+//   idle as their columns are eliminated) and keeps them in registers through
+//   all NKP pivots, taken in order without pivoting as solver/riccati.py's
+//   plain version takes them: aug -= (col_i - e_i) (row_i / piv_i).  Two pivots
+//   go per barrier: only the pair's two rows and two columns, as they stand
+//   before the first, and the pair's two reciprocals go through
+//   double-buffered shared buffers, and every thread brings the second pivot's
+//   row and column through the first itself, in the same operations as their
+//   owners, so a pair is exactly two single pivots (19 barriers at H1's shapes
+//   instead of 38).  Each pivot's reciprocal is taken once, by the thread that
+//   holds the pair's 2 x 2 block, and every update multiplies by it, as the TPU
+//   kernel multiplies by 1 / piv (pallas_riccati.py:179).  Eliminated columns
+//   are not updated.  Why pairs, and not a 2 x 2 block inverse: the stage KKT
+//   of a redundant contact set is near-singular (condition ~1e9 with
+//   dual_eps), and an explicit 2 x 2 inverse there cancels catastrophically
+//   where two successive pivots do not.
+// - Stage inputs are prefetched: once stage t's K is out, lane 0 of the last
+//   warp starts bulk copies (cp.async.bulk completing on an mbarrier) of stage
+//   t-1's pieces whose size is a multiple of 16 bytes into the other half of a
+//   double-buffered stage area, and the warp copies the other pieces (in
+//   float32 c, qx, qu: 88 B) with element-sized cp.async; meanwhile the other
+//   warps compute G and H_xx, in which the last warp has no tile.  The rollout
+//   keeps the inputs of RD - 1 steps in flight (A, B, K, c, k; RD = 4
+//   sub-slots laid over the stage area), started by the same warp, which the
+//   rollout leaves idle.
+// - S is kept unsymmetrized (U, with s as its last column) and symmetrized as
+//   P's product reads it, which saves a pass and a barrier.
+// - Shared-memory accesses are the chain's cost, so two neighbouring elements
+//   at an even index go as one access wherever a thread reads or writes such a
+//   pair (pivot rows, the 2-row tiles' operand pairs); the working arrays'
+//   row strides are padded to even for it.
+// Barriers per stage: NKP / 2 + 5 (24 at H1's shapes): after P, after the H
+// blocks, after the KKT load, NKP / 2 - 1 pivot pairs, after K, after H_xx and
+// H_uu K - H_ux, after U.  The rollout takes 2 per step.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "gauss_jordan.cuh"
+#if !defined(RICCATI_NX) || !defined(RICCATI_NU) || !defined(RICCATI_NE)
+#error "compile with RICCATI_NX, RICCATI_NU and RICCATI_NE defined (ops/riccati_kernel.py::build)"
+#endif
 
 namespace {
 
+constexpr int NX = RICCATI_NX, NU = RICCATI_NU, NE = RICCATI_NE;
+constexpr int NK = NU + NE;         // KKT rows
+constexpr int NKP = 2 * ((NK + 1) / 2);  // KKT rows padded to whole pivot pairs (an identity row if odd)
+constexpr int W = NKP + NX + 1;     // augmented columns: KKT | state | rhs
+constexpr int NXP = NX + 1;         // [state | rhs]: columns of K|k, U|s, H_xx|h_x, H_ux|h_u
+constexpr int LDP = NU + NX + 1;    // columns of P = S [B | A | c]
+// even row strides of the NXP- and LDP-wide working arrays, so that a pair of
+// neighbouring columns at an even index is one aligned shared-memory access
+constexpr int LDX = NXP + (NXP & 1);
+constexpr int LDPP = LDP + (LDP & 1);
+constexpr int NTH = 256;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+// columns per thread so that 2-row tiles of a rows x cols output fit in n threads
+__host__ __device__ constexpr int tile_cols(int rows, int cols, int n) {
+  int c = 1;
+  while (cdiv(rows, 2) * cdiv(cols, c) > n) ++c;
+  return c;
+}
+constexpr int CT = [] {  // elimination tile: 2 x CT, CT even so a pivot pair's columns share a tile
+  int c = 2;
+  while (cdiv(NKP, 2) * cdiv(W, c) > NTH) c += 2;
+  return c;
+}();
+constexpr int CG = cdiv(W, CT);
+constexpr int WP = CT * CG;                  // pivot row length, padded to whole tiles
+constexpr int P2_CT = tile_cols(NU, LDP, NTH);  // [H_uu | H_ux | h_u]
+constexpr int P2_CG = cdiv(LDP, P2_CT);
+constexpr int P1_CT = tile_cols(NX, LDP, NTH);
+constexpr int P1_CG = cdiv(LDP, P1_CT);
+constexpr int P4_CT = [] {  // G = H_uu [K|k] - [H_ux|h_u] and [H_xx|h_x] side by side
+  int c = 1;
+  while (cdiv(NU, 2) * cdiv(NXP, c) + cdiv(NX, 2) * cdiv(NXP, c) > NTH) ++c;
+  return c;
+}();
+constexpr int P4_CG = cdiv(NXP, P4_CT);
+constexpr int P4_NA = cdiv(NU, 2) * P4_CG;  // threads of G; the next ones take H_xx
+constexpr int P5_CT = tile_cols(NX, NXP, NTH);
+constexpr int P5_CG = cdiv(NXP, P5_CT);
+static_assert(CT <= 8 && P1_CT <= 8 && P2_CT <= 8 && P4_CT <= 8 && P5_CT <= 8,
+              "stage shapes too large for 256 threads");
+static_assert(NX <= NTH && NU <= NTH, "rollout takes one thread per row");
+// The warp that starts the asynchronous copies: the last, which the phase
+// after K (176 threads at H1's shapes) and the rollout (max(NX, NU)) leave idle.
+constexpr int kCopyWarp = NTH / 32 - 1;
+
+// --- the stage area: pieces of one stage, each at a 16-byte aligned offset
+enum Piece { kA, kB, kQxx, kQuu, kQux, kC, kD, kE, kMask, kc, kqx, kqu, kPieces };
+__host__ __device__ constexpr int piece_elems(int p) {
+  return p == kA || p == kQxx ? NX * NX : p == kB ? NX * NU : p == kQuu ? NU * NU : p == kQux ? NU * NX
+       : p == kC ? NE * NX : p == kD ? NE * NU : p == kE || p == kMask ? NE : p == kqu ? NU : NX;
+}
+template <typename T> __host__ __device__ constexpr int padded(int n) {
+  return cdiv(n * (int)sizeof(T), 16) * (16 / (int)sizeof(T));
+}
+template <typename T> __host__ __device__ constexpr bool is_bulk(int p) { return piece_elems(p) * sizeof(T) % 16 == 0; }
+template <typename T> __host__ __device__ constexpr int piece_off(int p) {
+  int o = 0;
+  for (int q = 0; q < p; ++q) o += padded<T>(piece_elems(q));
+  return o;
+}
+
+// --- working set after the two stage slots (offsets in elements)
+template <typename T> struct Smem {
+  static constexpr int slot = piece_off<T>(kPieces);
+  static constexpr int U = 2 * slot;                          // NX x NXP (stride LDX): unsymmetrized S | s
+  static constexpr int P = U + padded<T>(NX * LDX);           // NX x LDP (stride LDPP): S B | S A | S c + s
+  static constexpr int Aug = P + padded<T>(NX * LDPP);        // NKP x WP: the augmented KKT (H_uu unregularized)
+  static constexpr int Hxx = Aug + padded<T>(NKP * WP);       // NX x NXP (stride LDX): H_xx | h_x
+  static constexpr int Kx = Hxx + padded<T>(NX * LDX);        // NU x NXP (stride LDX): K | k
+  static constexpr int G = Kx + padded<T>(NU * LDX);          // NU x NXP (stride LDX): H_uu [K|k] - [H_ux|h_u]
+  static constexpr int row = G + padded<T>(NU * LDX);         // 2 x 2 x WP: the pivot pair's rows
+  static constexpr int col = row + padded<T>(4 * WP);         // 2 x NKP x 2: the pivot pair's columns
+  static constexpr int rinv = col + padded<T>(4 * NKP);       // 2 x 2: the pivots' reciprocals
+  static constexpr int dx = rinv + padded<T>(4);              // 2 x NX: rollout state
+  static constexpr int du = dx + padded<T>(2 * NX);           // NU
+  static constexpr int total = du + padded<T>(NU);
+  static constexpr size_t bytes = (size_t)total * sizeof(T) + 64;  // + the mbarriers
+};
+
+// The rollout's step inputs A, B, K, c, k, in a ring of RD sub-slots laid
+// over the two stage slots (K in Qux's shape, k in qu's)
+template <typename T> __host__ __device__ constexpr int roll_off(int q) {  // A, B, K, c, k
+  return (q > 0 ? padded<T>(NX * NX) : 0) + (q > 1 ? padded<T>(NX * NU) : 0) + (q > 2 ? padded<T>(NU * NX) : 0) +
+         (q > 3 ? padded<T>(NX) : 0) + (q > 4 ? padded<T>(NU) : 0);
+}
+template <typename T> constexpr int kRollFit = 2 * Smem<T>::slot / roll_off<T>(5);  // sub-slots that fit
+template <typename T> constexpr int RD = kRollFit<T> < 4 ? kRollFit<T> : 4;
+
+// --- asynchronous copies and barriers (PTX)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+// spins until the phase completes; a copy that never lands traps (~2 s)
+// rather than hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(phase)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src), "n"(BYTES) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+// order this thread's generic-proxy global writes before later bulk (async-proxy) reads
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async;\n" ::: "memory"); }
+
+// 1/x rounded to nearest, without the general division's slow path
+__device__ __forceinline__ float rcp(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double rcp(double x) { return __drcp_rn(x); }
+// two neighbouring elements at an even index, in one shared-memory access
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
 template <typename T>
-__global__ void riccati_kernel(
-    const T* __restrict__ A, const T* __restrict__ Bm, const T* __restrict__ c,
-    const T* __restrict__ C, const T* __restrict__ D, const T* __restrict__ e,
-    const T* __restrict__ Qxx, const T* __restrict__ Quu, const T* __restrict__ Qux,
-    const T* __restrict__ qx, const T* __restrict__ qu, const T* __restrict__ mask,
-    const T* __restrict__ dx0,
-    T* __restrict__ Kout, T* __restrict__ kout, T* __restrict__ dxout, T* __restrict__ duout,
-    int N, int nx, int nu, int ne, T dual_eps, T huu_reg) {
-  extern __shared__ unsigned char smem_raw[];
+__device__ __forceinline__ void load2(const T* p, T& a, T& b) {
+  const typename Pair<T>::type x = *reinterpret_cast<const typename Pair<T>::type*>(p);
+  a = x.x, b = x.y;
+}
+// p[0], p[1]: one access where the caller knows p is pair-aligned, else two
+template <bool Aligned, typename T>
+__device__ __forceinline__ void load_pair(const T* p, T& a, T& b) {
+  if constexpr (Aligned) load2(p, a, b);
+  else a = p[0], b = p[1];
+}
+template <typename T>
+__device__ __forceinline__ void store2(T* p, T a, T b) {
+  typename Pair<T>::type x;
+  x.x = a, x.y = b;
+  *reinterpret_cast<typename Pair<T>::type*>(p) = x;
+}
+
+// Copy stage st of the listed pieces to slot + offs[q]: lane 0 of the copy
+// warp arms the mbarrier with the bulk copies' bytes and starts them; the
+// warp copies the pieces that are not a multiple of 16 bytes element by
+// element (cp.async) and commits them as one group, empty when !active.
+template <typename T, int NP>
+__device__ __forceinline__ void start_copies(T* slot, const int (&pieces)[NP], const int (&offs)[NP],
+                                             const T* const (&src)[NP], size_t st, uint64_t* bar, bool active) {
+  const int lane = threadIdx.x - 32 * kCopyWarp;
+  if (lane == 0 && active) {
+    uint32_t bytes = 0;
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      if (is_bulk<T>(pieces[q])) bytes += piece_elems(pieces[q]) * sizeof(T);
+    mbar_expect(bar, bytes);
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      if (is_bulk<T>(pieces[q]))
+        bulk_copy(slot + offs[q], src[q] + st * piece_elems(pieces[q]), piece_elems(pieces[q]) * sizeof(T), bar);
+  }
+  if (lane >= 0 && lane < 32) {
+    if (active) {
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        if (!is_bulk<T>(pieces[q])) {
+          const int n = piece_elems(pieces[q]);
+          for (int i = lane; i < n; i += 32) cp_async<sizeof(T)>(slot + offs[q] + i, src[q] + st * n + i);
+        }
+    }
+    cp_async_commit();
+  }
+}
+
+template <typename T>
+struct StageInputs {
+  const T* p[kPieces];  // A, B, Qxx, Quu, Qux, C, D, e, mask, c, qx, qu: (Bn, N, ...) each
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NTH, 2)
+    riccati_kernel(const StageInputs<T> in, const T* __restrict__ dx0, T* __restrict__ Kout, T* __restrict__ kout,
+                   T* __restrict__ dxout, T* __restrict__ duout, int N, T dual_eps, T huu_reg) {
+  using L = Smem<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const int nk = nu + ne;        // KKT rows
-  const int W = nk + nx + 1;     // augmented columns: KKT | state | rhs
-  T* S = sm;                     // nx*nx cost-to-go
-  T* s = S + nx * nx;            // nx
-  T* sA = s + nx;                // nx*nx stage A
-  T* sB = sA + nx * nx;          // nx*nu stage B
-  T* SA = sB + nx * nu;          // nx*nx  S A  (later: unsymmetrized S)
-  T* SB = SA + nx * nx;          // nx*nu  S B  (later: H_uu K)
-  T* Sc = SB + nx * nu;          // max(nx,nu)  S c + s (later: H_uu k)
-  T* Hxx = Sc + (nx > nu ? nx : nu);  // nx*nx
-  T* Huu = Hxx + nx * nx;        // nu*nu
-  T* Hux = Huu + nu * nu;        // nu*nx
-  T* hx = Hux + nu * nx;         // nx
-  T* hu = hx + nx;               // nu
-  T* aug = hu + nu;              // nk*W
-  T* rowb = aug + nk * W;        // 2*W   pivot row, double-buffered
-  T* colb = rowb + 2 * W;        // 2*nk  pivot column, double-buffered
-  T* dxs = colb + 2 * nk;        // 2*nx  forward state, double-buffered
-  T* dus = dxs + 2 * nx;         // nu
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + (size_t)L::total * sizeof(T));
+  T* const U = sm + L::U;
+  T* const P = sm + L::P;
+  T* const Aug = sm + L::Aug;  // row stride WP; H_uu and [H_ux | h_u] are its blocks
+  T* const Huu = Aug;
+  T* const Hux = Aug + NKP;
+  T* const Hxx = sm + L::Hxx;
+  T* const Kx = sm + L::Kx;
+  T* const G = sm + L::G;
+  T* const rowb = sm + L::row;
+  T* const colb = sm + L::col;
+  T* const rinvb = sm + L::rinv;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-  const size_t sAx = (size_t)nx * nx, sBx = (size_t)nx * nu;
+  const size_t sb = (size_t)b * N;
 
-  for (int i = tid; i < nx * nx; i += nth) S[i] = T(0);
-  for (int i = tid; i < nx; i += nth) s[i] = T(0);
+  // fixed thread -> tile maps (divisions by compile-time constants, once)
+  const bool el_on = tid < NKP / 2 * CG;
+  // column-group major, so that whole warps fall idle as columns are eliminated
+  const int er0 = 2 * (tid % (NKP / 2)), ec0 = CT * (tid / (NKP / 2));
+  const bool p1_on = tid < cdiv(NX, 2) * P1_CG;
+  const int p1r = 2 * (tid / P1_CG), p1c = P1_CT * (tid % P1_CG);
+  const bool p2_on = tid < cdiv(NU, 2) * P2_CG;
+  const int p2r = 2 * (tid / P2_CG), p2c = P2_CT * (tid % P2_CG);
+  const bool p4a_on = tid < P4_NA;
+  const bool p4b_on = !p4a_on && tid < P4_NA + cdiv(NX, 2) * P4_CG;
+  const int p4t = p4a_on ? tid : tid - P4_NA;
+  const int p4r = 2 * (p4t / P4_CG), p4c = P4_CT * (p4t % P4_CG);
+  const bool p5_on = tid < cdiv(NX, 2) * P5_CG;
+  const int p5r = 2 * (tid / P5_CG), p5c = P5_CT * (tid % P5_CG);
+
+  // P's column j reads [B | A | c] from the slot at xoff + k * xstr
+  int xoff[P1_CT], xstr[P1_CT];
+#pragma unroll
+  for (int j = 0; j < P1_CT; ++j) {
+    const int c = p1c + j;
+    if (c < NU) xoff[j] = piece_off<T>(kB) + c, xstr[j] = NU;
+    else if (c < NU + NX) xoff[j] = piece_off<T>(kA) + c - NU, xstr[j] = NX;
+    else xoff[j] = piece_off<T>(kc), xstr[j] = 1;  // c, or padding (not stored)
+  }
+  T v[2][CT];  // this thread's tile of the augmented KKT
+  // hand pivots q, q+1 to the block through shared buffer `buf`: their rows
+  // and columns as they stand before pivot q, and both reciprocals, taken
+  // once by the thread that holds the 2 x 2 block (the tile's copies of
+  // eliminated columns go along unread)
+  auto hand_off = [&](int q, int buf) {
+    if (er0 == q) {
+#pragma unroll
+      for (int j = 0; j < CT; j += 2) {
+        store2(rowb + (2 * buf) * WP + ec0 + j, v[0][j], v[0][j + 1]);
+        store2(rowb + (2 * buf + 1) * WP + ec0 + j, v[1][j], v[1][j + 1]);
+      }
+    }
+    const int jn = q - ec0;
+    if (jn >= 0 && jn < CT) {
+      T c00 = v[0][0], c01 = v[0][1], c10 = v[1][0], c11 = v[1][1];
+#pragma unroll
+      for (int j = 2; j < CT; j += 2)
+        if (jn == j) c00 = v[0][j], c01 = v[0][j + 1], c10 = v[1][j], c11 = v[1][j + 1];
+      T* cb = colb + (buf * NKP + er0) * 2;
+      cb[0] = c00, cb[1] = c01, cb[2] = c10, cb[3] = c11;
+      if (er0 == q) {  // pivot q+1 as pivot q leaves it, exactly as its owner will update it
+        const T r0 = rcp(c00);
+        rinvb[2 * buf] = r0;
+        rinvb[2 * buf + 1] = rcp(fma(-c10, c01 * r0, c11));
+      }
+    }
+  };
+
+  for (int i = tid; i < NX * LDX; i += NTH) U[i] = T(0);
+  // the KKT's blocks that no stage writes: the -Reg block off its diagonal,
+  // the padding, and the padding row's identity pivot when NK is odd
+  for (int i = tid; i < NKP * WP; i += NTH) Aug[i] = i == NK * WP + NK ? T(1) : T(0);
+  if (tid == 0) {
+    for (int q = 0; q < 2 + RD<T>; ++q) mbar_init(&bars[q]);
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  for (int t = N - 1; t >= 0; --t) {
-    const size_t st = (size_t)b * N + t;
-    const T* At = A + st * sAx;
-    const T* Bt = Bm + st * sBx;
-    const T* ct = c + st * nx;
-    for (int i = tid; i < nx * nx; i += nth) sA[i] = At[i];
-    for (int i = tid; i < nx * nu; i += nth) sB[i] = Bt[i];
+  constexpr int stage_pieces[kPieces] = {kA, kB, kQxx, kQuu, kQux, kC, kD, kE, kMask, kc, kqx, kqu};
+  constexpr int stage_offs[kPieces] = {piece_off<T>(kA), piece_off<T>(kB), piece_off<T>(kQxx), piece_off<T>(kQuu),
+                                       piece_off<T>(kQux), piece_off<T>(kC), piece_off<T>(kD), piece_off<T>(kE),
+                                       piece_off<T>(kMask), piece_off<T>(kc), piece_off<T>(kqx), piece_off<T>(kqu)};
+  start_copies<T>(sm, stage_pieces, stage_offs, in.p, sb + N - 1, &bars[0], true);
+  if (tid / 32 == kCopyWarp) cp_async_wait_all();
+  __syncthreads();
+
+  for (int it = 0; it < N; ++it) {
+    const int t = N - 1 - it;
+    const size_t st = sb + t;
+    T* const cur = sm + (it & 1) * L::slot;
+    mbar_wait(&bars[it & 1], (it >> 1) & 1);
+
+    // the stage's constraint blocks into the KKT: D' | D, C, e, -Reg's diagonal
+    {
+      const T* Ds = cur + piece_off<T>(kD);
+      const T* Cs = cur + piece_off<T>(kC);
+      for (int i = tid; i < NE * NU; i += NTH) {
+        const int q = i / NU, c = i % NU;  // compile-time divisor
+        Aug[(NU + q) * WP + c] = Ds[i];
+        Aug[c * WP + NU + q] = Ds[i];
+      }
+      for (int i = tid; i < NE * NX; i += NTH) {
+        const int q = i / NX, c = i % NX;
+        Aug[(NU + q) * WP + NKP + c] = Cs[i];
+      }
+      if (tid < NE) {
+        const T m = cur[piece_off<T>(kMask) + tid];
+        Aug[(NU + tid) * WP + NU + tid] = -(m * dual_eps + (T(1) - m));
+        Aug[(NU + tid) * WP + NKP + NX] = cur[piece_off<T>(kE) + tid];
+      }
+    }
+    // P = S [B | A | c] + [0 | 0 | s],  S = (U + U')/2
+    if (p1_on) {
+      T acc[2][P1_CT];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < P1_CT; ++j) acc[a][j] = T(0);
+      const int r0 = p1r, r1 = p1r + 1 < NX ? p1r + 1 : NX - 1;
+#pragma unroll
+      for (int k = 0; k < NX; ++k) {
+        T u0, u1;  // U[k][r0], U[k][r0 + 1] (a padding column when r0 + 1 == NX)
+        load2(U + k * LDX + r0, u0, u1);
+        const T s0 = T(0.5) * (U[r0 * LDX + k] + u0);
+        const T s1 = T(0.5) * (U[r1 * LDX + k] + u1);
+#pragma unroll
+        for (int j = 0; j < P1_CT; ++j) {
+          const T x = cur[xoff[j] + k * xstr[j]];
+          acc[0][j] += s0 * x;
+          acc[1][j] += s1 * x;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < P1_CT; ++j) {
+          const int r = p1r + a, c = p1c + j;
+          if (r < NX && c < LDP) P[r * LDPP + c] = c == NU + NX ? acc[a][j] + U[r * LDX + NX] : acc[a][j];
+        }
+    }
     __syncthreads();
 
-    // SA = S A, SB = S B, Sc = S c + s
-    for (int idx = tid; idx < nx * nx + nx * nu + nx; idx += nth) {
-      if (idx < nx * nx) {
-        const int i = idx / nx, j = idx % nx;
-        T acc = T(0);
-        for (int k2 = 0; k2 < nx; ++k2) acc += S[i * nx + k2] * sA[k2 * nx + j];
-        SA[idx] = acc;
-      } else if (idx < nx * nx + nx * nu) {
-        const int r = idx - nx * nx, i = r / nu, j = r % nu;
-        T acc = T(0);
-        for (int k2 = 0; k2 < nx; ++k2) acc += S[i * nx + k2] * sB[k2 * nu + j];
-        SB[r] = acc;
+    // [H_uu | H_ux | h_u] = [Quu | Qux | qu] + B' [S B | S A | S c + s]
+    if (p2_on) {
+      const T* Bs = cur + piece_off<T>(kB);
+      const int r0 = p2r;
+      int cc[P2_CT];
+#pragma unroll
+      for (int j = 0; j < P2_CT; ++j) cc[j] = p2c + j < LDP ? p2c + j : LDP - 1;
+      T acc[2][P2_CT];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < P2_CT; ++j) acc[a][j] = T(0);
+#pragma unroll
+      for (int k = 0; k < NX; ++k) {
+        T b0, b1;  // B[k][r0], B[k][r0 + 1] (rows past NU are never stored)
+        load_pair<NU % 2 == 0>(Bs + k * NU + r0, b0, b1);
+        T x[P2_CT];
+#pragma unroll
+        for (int j = 0; j + 1 < P2_CT; j += 2) load_pair<P2_CT % 2 == 0>(P + k * LDPP + p2c + j, x[j], x[j + 1]);
+        if (P2_CT % 2) x[P2_CT - 1] = P[k * LDPP + cc[P2_CT - 1]];
+#pragma unroll
+        for (int j = 0; j < P2_CT; ++j) {
+          acc[0][j] += b0 * x[j];
+          acc[1][j] += b1 * x[j];
+        }
+      }
+      const T* Quu = cur + piece_off<T>(kQuu);
+      const T* Qux = cur + piece_off<T>(kQux);
+      const T* qu = cur + piece_off<T>(kqu);
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < P2_CT; ++j) {
+          const int r = p2r + a, c = p2c + j;
+          if (r < NU && c < LDP) {
+            if (c < NU) Huu[r * WP + c] = Quu[r * NU + c] + acc[a][j];
+            else Hux[r * WP + c - NU] = (c < NU + NX ? Qux[r * NX + c - NU] : qu[r]) + acc[a][j];
+          }
+        }
+    }
+    __syncthreads();
+
+    // the augmented KKT [H_uu + r I, D' | H_ux, h_u ; D, -Reg | C, e], built
+    // into this thread's registers
+    if (el_on) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const int r = er0 + a, c = ec0 + j;
+          v[a][j] = Aug[r * WP + c] + (r == c && r < NU ? huu_reg : T(0));
+        }
+      hand_off(0, 0);
+    }
+    __syncthreads();
+
+    // pivot-free Gauss-Jordan, aug -= (col_i - e_i) (row_i / piv_i) for pivots
+    // i = 0 .. NKP-1 in order, two pivots per barrier: every thread brings
+    // pivot p+1's row and column through pivot p itself from the buffers
+    // (p+1's row: R1 - C_p[p+1] n0, its column: C1 - e0 n0[p+1]), in the same
+    // operations as their owners, so the pair is exactly two single pivots
+#pragma unroll
+    for (int p = 0; p < NKP; p += 2) {
+      const int cb = (p >> 1) & 1;
+      if (el_on && ec0 + CT > p + 2) {  // tiles of eliminated columns are done
+        const T* R0 = rowb + (2 * cb) * WP;
+        const T* R1 = R0 + WP;
+        const T* Cc = colb + cb * NKP * 2;
+        const T rinv0 = rinvb[2 * cb], rinv1 = rinvb[2 * cb + 1];
+        const T cp1 = Cc[2 * (p + 1)];     // aug[p+1][p]
+        const T np1 = R0[p + 1] * rinv0;  // row p / piv_p at column p+1
+        T e0[2], e1[2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int r = er0 + a;
+          e0[a] = Cc[2 * r] - (r == p ? T(1) : T(0));
+          e1[a] = fma(-e0[a], np1, Cc[2 * r + 1]) - (r == p + 1 ? T(1) : T(0));
+        }
+        T x0[CT], x1[CT];
+#pragma unroll
+        for (int j = 0; j < CT; j += 2) {
+          load2(R0 + ec0 + j, x0[j], x0[j + 1]);
+          load2(R1 + ec0 + j, x1[j], x1[j + 1]);
+        }
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const T n0 = x0[j] * rinv0;
+          const T n1 = fma(-cp1, n0, x1[j]) * rinv1;
+          if (ec0 + j >= p + 2) {  // eliminated columns are not updated
+#pragma unroll
+            for (int a = 0; a < 2; ++a) v[a][j] = fma(-e1[a], n1, fma(-e0[a], n0, v[a][j]));
+          }
+        }
+        if (p + 2 < NKP) hand_off(p + 2, cb ^ 1);
+      }
+      if (p + 2 < NKP) __syncthreads();
+    }
+
+    // K | k: the solution columns of the first NU rows
+    if (el_on) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const int r = er0 + a, c = ec0 + j;
+          if (r < NU && c >= NKP && c < W) {
+            Kx[r * LDX + c - NKP] = v[a][j];
+            if (c < NKP + NX) Kout[st * (NU * NX) + r * NX + c - NKP] = v[a][j];
+            else kout[st * NU + r] = v[a][j];
+          }
+        }
+    }
+    __syncthreads();
+
+    // stage t-1's inputs, started by the copy warp while the others compute G and H_xx
+    if (it + 1 < N)
+      start_copies<T>(sm + ((it + 1) & 1) * L::slot, stage_pieces, stage_offs, in.p, st - 1, &bars[(it + 1) & 1],
+                      true);
+
+    // G = H_uu [K | k] - [H_ux | h_u]  beside  [H_xx | h_x] = [Qxx | qx] + A' [S A | S c + s]
+    if (p4a_on || p4b_on) {
+      const int nr = p4a_on ? NU : NX;
+      const int r0 = p4r, r1 = p4r + 1 < nr ? p4r + 1 : nr - 1;
+      T acc[2][P4_CT];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < P4_CT; ++j) acc[a][j] = T(0);
+      int cc[P4_CT];
+#pragma unroll
+      for (int j = 0; j < P4_CT; ++j) cc[j] = p4c + j < NXP ? p4c + j : NX;
+      if (p4a_on) {
+#pragma unroll
+        for (int k = 0; k < NU; ++k) {
+          const T h0 = Huu[r0 * WP + k], h1 = Huu[r1 * WP + k];
+#pragma unroll
+          for (int j = 0; j < P4_CT; ++j) {
+            const T x = Kx[k * LDX + cc[j]];
+            acc[0][j] += h0 * x;
+            acc[1][j] += h1 * x;
+          }
+        }
       } else {
-        const int i = idx - nx * nx - nx * nu;
-        T acc = T(0);
-        for (int k2 = 0; k2 < nx; ++k2) acc += S[i * nx + k2] * ct[k2];
-        Sc[i] = acc + s[i];
+        const T* As = cur + piece_off<T>(kA);
+#pragma unroll
+        for (int k = 0; k < NX; ++k) {
+          T a0, a1;  // A[k][r0], A[k][r0 + 1]
+          load_pair<NX % 2 == 0>(As + k * NX + r0, a0, a1);
+#pragma unroll
+          for (int j = 0; j < P4_CT; ++j) {
+            const T x = P[k * LDPP + NU + cc[j]];
+            acc[0][j] += a0 * x;
+            acc[1][j] += a1 * x;
+          }
+        }
       }
+      const T* Qxx = cur + piece_off<T>(kQxx);
+      const T* qx = cur + piece_off<T>(kqx);
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < P4_CT; ++j) {
+          const int r = p4r + a, c = p4c + j;
+          if (r < nr && c < NXP) {
+            if (p4a_on) G[r * LDX + c] = acc[a][j] - Hux[r * WP + c];
+            else Hxx[r * LDX + c] = (c < NX ? Qxx[r * NX + c] : qx[r]) + acc[a][j];
+          }
+        }
     }
     __syncthreads();
 
-    // H_xx, H_uu, H_ux, h_x, h_u
-    {
-      const T* Qxxt = Qxx + st * sAx;
-      const T* Quut = Quu + st * (size_t)nu * nu;
-      const T* Quxt = Qux + st * sBx;
-      const int n1 = nx * nx, n2 = n1 + nu * nu, n3 = n2 + nu * nx, n4 = n3 + nx, n5 = n4 + nu;
-      for (int idx = tid; idx < n5; idx += nth) {
-        if (idx < n1) {
-          const int i = idx / nx, j = idx % nx;
-          T acc = T(0);
-          for (int k2 = 0; k2 < nx; ++k2) acc += sA[k2 * nx + i] * SA[k2 * nx + j];
-          Hxx[idx] = Qxxt[idx] + acc;
-        } else if (idx < n2) {
-          const int r = idx - n1, i = r / nu, j = r % nu;
-          T acc = T(0);
-          for (int k2 = 0; k2 < nx; ++k2) acc += sB[k2 * nu + i] * SB[k2 * nu + j];
-          Huu[r] = Quut[r] + acc;
-        } else if (idx < n3) {
-          const int r = idx - n2, i = r / nx, j = r % nx;
-          T acc = T(0);
-          for (int k2 = 0; k2 < nx; ++k2) acc += sB[k2 * nu + i] * SA[k2 * nx + j];
-          Hux[r] = Quxt[r] + acc;
-        } else if (idx < n4) {
-          const int i = idx - n3;
-          T acc = T(0);
-          for (int k2 = 0; k2 < nx; ++k2) acc += sA[k2 * nx + i] * Sc[k2];
-          hx[i] = qx[st * nx + i] + acc;
-        } else {
-          const int i = idx - n4;
-          T acc = T(0);
-          for (int k2 = 0; k2 < nx; ++k2) acc += sB[k2 * nu + i] * Sc[k2];
-          hu[i] = qu[st * nu + i] + acc;
+    // U = [H_xx | h_x] + K' G - H_ux' [K | k]  (the last column is s)
+    if (p5_on) {
+      const int r0 = p5r, r1 = p5r + 1 < NX ? p5r + 1 : NX - 1;
+      int cc[P5_CT];
+#pragma unroll
+      for (int j = 0; j < P5_CT; ++j) cc[j] = p5c + j < NXP ? p5c + j : NX;
+      T acc[2][P5_CT];
+#pragma unroll
+      for (int j = 0; j < P5_CT; ++j) acc[0][j] = Hxx[r0 * LDX + cc[j]], acc[1][j] = Hxx[r1 * LDX + cc[j]];
+#pragma unroll
+      for (int k = 0; k < NU; ++k) {
+        T k0, k1, h0, h1;  // K[k][r0], K[k][r0 + 1], H_ux[k][r0], H_ux[k][r0 + 1]
+        load2(Kx + k * LDX + r0, k0, k1);
+        load2(Hux + k * WP + r0, h0, h1);
+#pragma unroll
+        for (int j = 0; j < P5_CT; ++j) {
+          const T g = G[k * LDX + cc[j]], kj = Kx[k * LDX + cc[j]];
+          acc[0][j] += k0 * g - h0 * kj;
+          acc[1][j] += k1 * g - h1 * kj;
         }
       }
-    }
-    __syncthreads();
-
-    // augmented KKT [H_uu + r I, D' | H_ux, h_u ; D, -Reg | C, e]
-    {
-      const T* Ct = C + st * (size_t)ne * nx;
-      const T* Dt = D + st * (size_t)ne * nu;
-      const T* et = e + st * ne;
-      const T* mt = mask + st * ne;
-      for (int idx = tid; idx < nk * W; idx += nth) {
-        const int r = idx / W, col = idx % W;
-        T v;
-        if (r < nu) {
-          if (col < nu) v = Huu[r * nu + col] + (r == col ? huu_reg : T(0));
-          else if (col < nk) v = Dt[(col - nu) * nu + r];
-          else if (col < nk + nx) v = Hux[r * nx + (col - nk)];
-          else v = hu[r];
-        } else {
-          const int q = r - nu;
-          if (col < nu) v = Dt[q * nu + col];
-          else if (col < nk) v = (col - nu == q) ? -(mt[q] * dual_eps + (T(1) - mt[q])) : T(0);
-          else if (col < nk + nx) v = Ct[q * nx + (col - nk)];
-          else v = et[q];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < P5_CT; ++j) {
+          const int r = p5r + a, c = p5c + j;
+          if (r < NX && c < NXP) U[r * LDX + c] = acc[a][j];
         }
-        aug[idx] = v;
-        if (r == 0) rowb[col] = v;
-        if (col == 0) colb[r] = v;
-      }
     }
-    __syncthreads();
-
-    // Gauss-Jordan without pivoting: aug -= (col - e_i) (row_i / pivot)
-    gauss_jordan_eliminate(aug, rowb, colb, nk, W);
-
-    // K = X[:nu, state cols], k = X[:nu, rhs col]; H_uu K -> SB, H_uu k -> Sc
-    {
-      T* Kt = Kout + st * (size_t)nu * nx;
-      T* kt = kout + st * nu;
-      for (int idx = tid; idx < nu * nx + nu; idx += nth) {
-        if (idx < nu * nx) {
-          const int a = idx / nx, j = idx % nx;
-          Kt[idx] = aug[a * W + nk + j];
-          T acc = T(0);
-          for (int b2 = 0; b2 < nu; ++b2) acc += Huu[a * nu + b2] * aug[b2 * W + nk + j];
-          SB[idx] = acc;
-        } else {
-          const int a = idx - nu * nx;
-          kt[a] = aug[a * W + nk + nx];
-          T acc = T(0);
-          for (int b2 = 0; b2 < nu; ++b2) acc += Huu[a * nu + b2] * aug[b2 * W + nk + nx];
-          Sc[a] = acc;
-        }
-      }
-    }
-    __syncthreads();
-
-    // unsymmetrized S -> SA, and s
-    for (int idx = tid; idx < nx * nx + nx; idx += nth) {
-      if (idx < nx * nx) {
-        const int i = idx / nx, j = idx % nx;
-        T acc = Hxx[idx];
-        for (int a = 0; a < nu; ++a) {
-          const T Kai = aug[a * W + nk + i], Kaj = aug[a * W + nk + j];
-          acc += Kai * SB[a * nx + j] - Kai * Hux[a * nx + j] - Hux[a * nx + i] * Kaj;
-        }
-        SA[idx] = acc;
-      } else {
-        const int i = idx - nx * nx;
-        T acc = hx[i];
-        for (int a = 0; a < nu; ++a) {
-          const T Kai = aug[a * W + nk + i];
-          acc += Kai * Sc[a] - Kai * hu[a] - Hux[a * nx + i] * aug[a * W + nk + nx];
-        }
-        s[i] = acc;
-      }
-    }
-    __syncthreads();
-    for (int idx = tid; idx < nx * nx; idx += nth) {
-      const int i = idx / nx, j = idx % nx;
-      S[idx] = T(0.5) * (SA[i * nx + j] + SA[j * nx + i]);
-    }
+    if (tid / 32 == kCopyWarp) cp_async_wait_all();
     __syncthreads();
   }
 
-  // forward rollout (K3): du = -K dx - k, dx' = A dx + B du + c
-  T* dxo = dxout + (size_t)b * (N + 1) * nx;
-  for (int i = tid; i < nx; i += nth) {
-    dxs[i] = dx0[(size_t)b * nx + i];
-    dxo[i] = dxs[i];
+  // forward rollout (K3): du = -K dx - k, dx' = A dx + B du + c, with the
+  // inputs of steps t+1 .. t+RD-1 in flight while step t computes
+  fence_proxy_async();  // K, k were written by this block: order them before the bulk reads
+  __syncthreads();
+  constexpr int R = RD<T>;
+  static_assert(R >= 2, "the rollout ring needs two sub-slots");
+  constexpr int roll_pieces[5] = {kA, kB, kQux, kc, kqu};
+  constexpr int roll_offs[5] = {roll_off<T>(0), roll_off<T>(1), roll_off<T>(2), roll_off<T>(3), roll_off<T>(4)};
+  const T* const roll_src[5] = {in.p[kA], in.p[kB], Kout, in.p[kc], kout};
+  uint64_t* const rbars = bars + 2;
+#pragma unroll
+  for (int q = 0; q < R - 1; ++q)
+    start_copies<T>(sm + q * roll_off<T>(5), roll_pieces, roll_offs, roll_src, sb + q, &rbars[q], q < N);
+  T* const dxs = sm + L::dx;
+  T* const dus = sm + L::du;
+  T* const dxo = dxout + (size_t)b * (N + 1) * NX;
+  if (tid < NX) {
+    dxs[tid] = dx0[(size_t)b * NX + tid];
+    dxo[tid] = dxs[tid];
   }
+  if (tid / 32 == kCopyWarp) cp_async_wait_group<R - 2>();
   __syncthreads();
   for (int t = 0; t < N; ++t) {
-    const size_t st = (size_t)b * N + t;
-    const T* cur = dxs + (t & 1) * nx;
-    T* nxt = dxs + ((t + 1) & 1) * nx;
-    const T* Kt = Kout + st * (size_t)nu * nx;
-    for (int a = tid; a < nu; a += nth) {
+    const size_t st = sb + t;
+    const int q = t % R, qn = (t + R - 1) % R;  // compile-time divisor
+    T* const cur = sm + q * roll_off<T>(5);
+    start_copies<T>(sm + qn * roll_off<T>(5), roll_pieces, roll_offs, roll_src, st + R - 1, &rbars[qn],
+                    t + R - 1 < N);
+    mbar_wait(&rbars[q], (t / R) & 1);
+    const T* x = dxs + (t & 1) * NX;
+    T* xn = dxs + ((t + 1) & 1) * NX;
+    if (tid < NU) {
+      const T* Kt = cur + roll_off<T>(2);
       T acc = T(0);
-      for (int j = 0; j < nx; ++j) acc += Kt[a * nx + j] * cur[j];
-      const T v = -acc - kout[st * nu + a];
-      dus[a] = v;
-      duout[st * nu + a] = v;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) acc += Kt[tid * NX + j] * x[j];
+      const T d = -acc - cur[roll_off<T>(4) + tid];
+      dus[tid] = d;
+      duout[st * NU + tid] = d;
     }
     __syncthreads();
-    const T* At = A + st * sAx;
-    const T* Bt = Bm + st * sBx;
-    for (int i = tid; i < nx; i += nth) {
-      T acc = T(0);
-      for (int j = 0; j < nx; ++j) acc += At[i * nx + j] * cur[j];
-      T acc2 = T(0);
-      for (int a = 0; a < nu; ++a) acc2 += Bt[i * nu + a] * dus[a];
-      const T v = acc + acc2 + c[st * nx + i];
-      nxt[i] = v;
-      dxo[(size_t)(t + 1) * nx + i] = v;
+    if (tid < NX) {
+      const T* At = cur + roll_off<T>(0);
+      const T* Bt = cur + roll_off<T>(1);
+      T acc = T(0), acc2 = T(0);
+#pragma unroll
+      for (int j = 0; j < NX; ++j) acc += At[tid * NX + j] * x[j];
+#pragma unroll
+      for (int a = 0; a < NU; ++a) acc2 += Bt[tid * NU + a] * dus[a];
+      const T d = acc + acc2 + cur[roll_off<T>(3) + tid];
+      xn[tid] = d;
+      dxo[(size_t)(t + 1) * NX + tid] = d;
     }
+    if (tid / 32 == kCopyWarp) cp_async_wait_group<R - 2>();  // step t+1's element copies
     __syncthreads();
   }
 }
 
 template <typename T>
-size_t smem_bytes(int nx, int nu, int ne) {
-  const int nk = nu + ne, W = nk + nx + 1;
-  const size_t n = (size_t)nx * nx * 4 + (size_t)nx * nu * 2 + (size_t)nu * nu + (size_t)nu * nx +
-                   (size_t)nx * 4 + (size_t)(nx > nu ? nx : nu) + (size_t)nu * 2 + (size_t)nk * W +
-                   2 * (size_t)W + 2 * (size_t)nk;
-  return n * sizeof(T);
-}
-
-template <typename T>
-int launch(const void* A, const void* B, const void* c, const void* C, const void* D, const void* e,
-           const void* Qxx, const void* Quu, const void* Qux, const void* qx, const void* qu,
-           const void* mask, const void* dx0, void* K, void* k, void* dx, void* du, int Bn, int N,
-           int nx, int nu, int ne, double dual_eps, double huu_reg, void* stream) {
-  const size_t smem = smem_bytes<T>(nx, nu, ne);
-  cudaError_t err = cudaFuncSetAttribute(riccati_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+int launch(const void* const* ins, const void* dx0, void* K, void* k, void* dx, void* du, int Bn, int N,
+           double dual_eps, double huu_reg, void* stream) {
+  StageInputs<T> in;
+  for (int p = 0; p < kPieces; ++p) in.p[p] = static_cast<const T*>(ins[p]);
+  const size_t smem = Smem<T>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(riccati_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  riccati_kernel<T><<<Bn, 256, smem, (cudaStream_t)stream>>>(
-      (const T*)A, (const T*)B, (const T*)c, (const T*)C, (const T*)D, (const T*)e, (const T*)Qxx,
-      (const T*)Quu, (const T*)Qux, (const T*)qx, (const T*)qu, (const T*)mask, (const T*)dx0, (T*)K,
-      (T*)k, (T*)dx, (T*)du, N, nx, nu, ne, (T)dual_eps, (T)huu_reg);
+  riccati_kernel<T><<<Bn, NTH, smem, (cudaStream_t)stream>>>(in, (const T*)dx0, (T*)K, (T*)k, (T*)dx, (T*)du, N,
+                                                              (T)dual_eps, (T)huu_reg);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define RICCATI_ENTRY(NAME, T)                                                                      \
-  extern "C" int NAME(const void* A, const void* B, const void* c, const void* C, const void* D,   \
-                      const void* e, const void* Qxx, const void* Quu, const void* Qux,            \
-                      const void* qx, const void* qu, const void* mask, const void* dx0, void* K,  \
-                      void* k, void* dx, void* du, int Bn, int N, int nx, int nu, int ne,          \
-                      double dual_eps, double huu_reg, void* stream) {                             \
-    return launch<T>(A, B, c, C, D, e, Qxx, Quu, Qux, qx, qu, mask, dx0, K, k, dx, du, Bn, N, nx,  \
-                     nu, ne, dual_eps, huu_reg, stream);                                           \
+// Inputs in the order A, B, Qxx, Quu, Qux, C, D, e, mask, c, qx, qu, each
+// (Bn, N, ...) contiguous and 16-byte aligned; the shapes are the compiled ones.
+#define RICCATI_ENTRY(NAME, T)                                                                                \
+  extern "C" int NAME(const void* const* ins, const void* dx0, void* K, void* k, void* dx, void* du, int Bn, \
+                      int N, double dual_eps, double huu_reg, void* stream) {                                \
+    return launch<T>(ins, dx0, K, k, dx, du, Bn, N, dual_eps, huu_reg, stream);                              \
   }
 
 RICCATI_ENTRY(riccati_solve_f32, float)
 RICCATI_ENTRY(riccati_solve_f64, double)
+
+extern "C" int riccati_smem_bytes(int f64) { return (int)(f64 ? Smem<double>::bytes : Smem<float>::bytes); }

@@ -3,8 +3,8 @@ kernel (``csrc/gauss_jordan.cu``).
 
 Replaces the TPU kernel ``_gj_kernel`` of ``bipedal_control_tpu/ops/pallas_gj.py``
 (its ``pallas_call`` in ``gauss_jordan_solve_pallas``).  No production path
-calls it: the Riccati kernel (``csrc/riccati.cu``) runs the same elimination
-inline on its stage KKT.  The plain PyTorch version is
+calls it: the Riccati kernel (``csrc/riccati.cu``) runs its own,
+register-resident elimination of its stage KKT, two pivots per barrier.  The plain PyTorch version is
 ``ops/linalg.py::gauss_jordan_solve``; :func:`gauss_jordan_solve_pallas`
 runs it for CPU tensors only, and for CUDA tensors launches the kernel or
 raises.  The TPU kernel's padding of each system to (8, 128) tiles has no

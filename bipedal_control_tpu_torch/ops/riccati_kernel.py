@@ -1,5 +1,6 @@
 """K2+K3: the constrained Riccati backward sweep and forward rollout as one
-hand-written CUDA kernel (``csrc/riccati.cu``).
+hand-written CUDA kernel (``csrc/riccati.cu``), compiled for the stage shapes
+(nx, nu, ne) it is called with.
 
 Replaces the TPU kernels ``_backward_kernel`` and ``_forward_kernel`` of
 ``bipedal_control_tpu/ops/pallas_riccati.py`` (their ``pallas_call`` sites
@@ -14,16 +15,24 @@ import ctypes
 
 import torch
 
-from .cuda_build import build_library, check_launch, check_tensor
+from . import cuda_build
+from .cuda_build import check_launch, check_tensor
 
 _FIELDS = ("A", "B", "c", "C", "D", "e", "Qxx", "Quu", "Qux", "qx", "qu")
+_KERNEL_ORDER = ("A", "B", "Qxx", "Quu", "Qux", "C", "D", "e", "mask", "c", "qx", "qu")  # riccati.cu's Piece
 
 
-def build():
-    """Build (or load from the cache) the kernel library."""
-    built = build_library("riccati", "riccati.cu", {})
+def shape_defines(nx: int, nu: int, ne: int) -> dict[str, str]:
+    """The compile-time stage shapes of ``csrc/riccati.cu``."""
+    return {"RICCATI_NX": str(nx), "RICCATI_NU": str(nu), "RICCATI_NE": str(ne)}
+
+
+def build(nx: int, nu: int, ne: int):
+    """Build (or load from the cache) the kernel library for these stage
+    shapes; other shapes are another library, built on first use."""
+    built = cuda_build.build_library("riccati", "riccati.cu", shape_defines(nx, nu, ne))
     for fn in (built.lib.riccati_solve_f32, built.lib.riccati_solve_f64):
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_double] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_double] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return built
 
@@ -56,23 +65,26 @@ def riccati_solve_cuda(nodes, masks, dx0, dual_eps: float, huu_reg: float):
         "D": (Bn, N, ne, nu), "e": (Bn, N, ne), "Qxx": (Bn, N, nx, nx), "Quu": (Bn, N, nu, nu),
         "Qux": (Bn, N, nu, nx), "qx": (Bn, N, nx), "qu": (Bn, N, nu),
     }
-    ins = []
-    for f in _FIELDS:
-        t = getattr(nodes, f)
+    ins = {f: getattr(nodes, f) for f in _FIELDS}
+    for f, t in ins.items():
         check_tensor(t, f, A.device, A.dtype, shapes[f])
-        ins.append(t)
     check_tensor(masks, "masks", A.device, A.dtype, (Bn, N, ne))
     check_tensor(dx0, "dx0", A.device, A.dtype, (Bn, nx))
-    K = torch.empty(Bn, N, nu, nx, dtype=A.dtype, device=A.device)
+    ins["mask"] = masks
+    for f, t in ins.items():
+        if t.data_ptr() % 16:  # the kernel's bulk copies read each input from a 16-byte aligned base
+            raise ValueError(f"{f}: data not 16-byte aligned")
+    K =torch.empty(Bn, N, nu, nx, dtype=A.dtype, device=A.device)
     k = torch.empty(Bn, N, nu, dtype=A.dtype, device=A.device)
     dx = torch.empty(Bn, N + 1, nx, dtype=A.dtype, device=A.device)
     du = torch.empty(Bn, N, nu, dtype=A.dtype, device=A.device)
-    lib = build().lib
+    lib = build(nx, nu, ne).lib
     fn = lib.riccati_solve_f32 if A.dtype == torch.float32 else lib.riccati_solve_f64
-    tensors = ins + [masks, dx0, K, k, dx, du]
+    ptrs = (ctypes.c_void_p * len(_KERNEL_ORDER))(*[ins[f].data_ptr() for f in _KERNEL_ORDER])
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        status = fn(*[t.data_ptr() for t in tensors], Bn, N, nx, nu, ne, float(dual_eps), float(huu_reg), stream)
+        status = fn(ptrs, dx0.data_ptr(), K.data_ptr(), k.data_ptr(), dx.data_ptr(), du.data_ptr(), Bn, N,
+                    float(dual_eps), float(huu_reg), stream)
     check_launch(status, "riccati kernel")
     riccati_solve.launches += 1
     return K, k, dx, du

@@ -9,7 +9,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      nvcc (sm_90a), one nvcc process each, all started together; prints
      ptxas's registers and spill stores per kernel;
   3. K2+K3 (Riccati sweep + rollout) vs its plain version at B=256, N=67,
-     nx=nu=22, ne=16, float64 and float32;
+     nx=nu=22, ne=16, float64 and float32, timed at B=256 and at B=1 (one
+     CTA's chain) with its time per stage, barriers per stage, registers,
+     spills and shared memory;
   4. K4 (merit sums) vs its plain version at M=17,152 instances, all four
      contact modes, float64 and float32;
   5. K1 (whole-node linearization) vs its plain version (the structured
@@ -294,16 +296,19 @@ def k4_ops(sm, M: int, rk2: bool, nx: int, nc: int = 4) -> float:
 
 
 def k23_ops(B: int, N: int, nx: int, nu: int, ne: int) -> float:
-    """riccati.cu per stage: S A, S B, S c + s, the H blocks, the KKT's
-    Gauss-Jordan (4 operations per updated element), K's products, the S and
-    s updates and the symmetrisation; then the rollout."""
-    nk = nu + ne
-    W = nk + nx + 1
-    gj = sum(nk * (W - 1 - i) * 4 for i in range(nk))
-    stage = (2 * nx**3 + 2 * nx * nx * nu + nx * (2 * nx + 1)
-             + (nx * nx + nu * nu + nu * nx + nx + nu) * (2 * nx + 1) + nu + 3 * ne + gj
-             + (nu * nx + nu) * 2 * nu + (nx * nx + nx) * 6 * nu + 2 * nx * nx)
-    rollout = nu * (2 * nx + 2) + nx * (2 * nx + 2 * nu + 2)
+    """riccati.cu per stage: P = S [B | A | c] + s with S's symmetrisation,
+    [H_uu | H_ux | h_u] = Q + B'P, the KKT's -Reg diagonal and H_uu's
+    regularisation, the pivot-free elimination (per pivot pair: two
+    multiply-adds per updated element, each column's two normalised row
+    entries, each row's two factors, the pair's two reciprocals),
+    G = H_uu [K|k] - [H_ux|h_u], [H_xx|h_x] = Q + A'P, U; then the rollout."""
+    nkp = 2 * ((nu + ne + 1) // 2)
+    w = nkp + nx + 1
+    ldp, nxp = nu + nx + 1, nx + 1
+    elim = sum(nkp * (w - p - 2) * 4 + (w - p - 2) * 4 + nkp * 4 + 4 for p in range(0, nkp, 2))
+    stage = (2 * nx * nx + nx * ldp * 2 * nx + nx + nu * ldp * (2 * nx + 1) + 3 * ne + nu + elim
+             + nu * nxp * (2 * nu + 1) + nx * nxp * (2 * nx + 1) + nx * nxp * 4 * nu)
+    rollout = nu * (2 * nx + 1) + nx * (2 * nx + 2 * nu + 2)
     return float(B * N * (stage + rollout))
 
 
@@ -342,17 +347,19 @@ def ptxas_summary(report: str) -> list[str]:
     return out
 
 
-def phase_build(defines):
+def phase_build(defines, shapes):
+    """shapes: the main path's (nx, nu, ne), compiled into the Riccati kernel."""
     names = ("riccati", "merit", "linearize", "gauss_jordan")
     t0 = time.perf_counter()
-    libs = build_libraries([("riccati", "riccati.cu", {}), ("merit", "merit.cu", defines),
-                            ("linearize", "linearize.cu", defines), ("gauss_jordan", "gauss_jordan.cu", {})])
+    libs = build_libraries([("riccati", "riccati.cu", riccati_kernel.shape_defines(*shapes)),
+                            ("merit", "merit.cu", defines), ("linearize", "linearize.cu", defines),
+                            ("gauss_jordan", "gauss_jordan.cu", {})])
     secs = time.perf_counter() - t0
     print(f"[2 build] riccati.cu merit.cu linearize.cu gauss_jordan.cu for sm_90a in {secs:.1f} s "
           f"(nvcc in parallel: " + ", ".join(f"{n} {b.build_seconds:.1f} s" for n, b in zip(names, libs)) + ")")
     for n, b in zip(names, libs):
         print(f"[2 build] ptxas {n}: " + " | ".join(ptxas_summary(b.ptxas_report)))
-    return secs
+    return libs[0]
 
 
 def random_lqr(B: int, N: int, nx: int, nu: int, ne: int, seed: int, device, dtype):
@@ -377,7 +384,14 @@ def random_lqr(B: int, N: int, nx: int, nu: int, ne: int, seed: int, device, dty
     return nodes, T(mask), T(rng.normal(size=(B, nx)) * 0.1)
 
 
-def phase_riccati(device):
+def riccati_barriers_per_stage(nu: int, ne: int) -> int:
+    """A constant of csrc/riccati.cu's design: after P = S [B | A | c], after
+    the H blocks, after the KKT load, one per pivot pair but the last,
+    after K, after H_xx and G, after U."""
+    return (nu + ne + 1) // 2 + 5
+
+
+def phase_riccati(device, lib):
     """K2+K3 vs plain.  f32 bar 1e-3: the problem is stable and well
     conditioned (unit-dominant Hessians, dual_eps = 1.2e-5 in f32), so two
     float32 evaluations of the same sweep in different summation orders
@@ -400,12 +414,25 @@ def phase_riccati(device):
             out["max_abs_err"] = max(float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref))
             out["ms"] = cuda_time_ms(lambda: riccati_kernel.riccati_solve_cuda(nodes, masks, dx0, *regs), 20)
             out["plain_ms"] = cuda_time_ms(lambda: riccati_plain(nodes, masks, dx0, regs), 3)
+    # one CTA's chain: B = 1 at the main path's shapes, float32, held to the same bar
+    nodes1, masks1, dx01 = random_lqr(1, N, nx, nu, ne, 8, device, torch.float32)
+    regs = _regs(torch.float32)
+    got = riccati_kernel.riccati_solve_cuda(nodes1, masks1, dx01, *regs)
+    err = max(rel_err(g, r) for g, r in zip(got, riccati_plain(nodes1, masks1, dx01, regs)))
+    require(err <= 1e-3, f"riccati kernel disagrees at B=1 in float32: {err:.3e}")
+    out["b1_ms"] = cuda_time_ms(lambda: riccati_kernel.riccati_solve_cuda(nodes1, masks1, dx01, *regs), 50)
     s = 4
     stage_in = 2 * nx * nx + 2 * nx * nu + nu * nu + ne * nx + ne * nu + 2 * nx + nu + 2 * ne
     stage_out = nu * nx + 2 * nu
     out.update(bound(s * (B * N * (stage_in + stage_out) + B * nx + B * (N + 1) * nx), k23_ops(B, N, nx, nu, ne)))
     print(f"[3 riccati] float32 B={B}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
           f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    ptx = ptxas_summary(lib.ptxas_report)
+    smem = {d: lib.lib.riccati_smem_bytes(f) for d, f in (("f32", 0), ("f64", 1))}
+    print(f"[3 riccati] float32 B=1: kernel {out['b1_ms']:.4f} ms (max rel err {err:.2e}, bar 1e-3); "
+          f"{out['ms'] * 1e3 / N:.2f} us/stage at B={B}, {out['b1_ms'] * 1e3 / N:.2f} us/stage at B=1; "
+          f"{riccati_barriers_per_stage(nu, ne)} barriers/stage; ptxas {' | '.join(ptx)}; "
+          f"shared memory per CTA f32 {smem['f32']} B, f64 {smem['f64']} B")
     return out
 
 
@@ -745,10 +772,10 @@ def main():
     model = from_description(desc)
     info = make_info(model, H1_CONTACTS)
     print(f"[robot] {robot}: nj={info.nj} nx={info.state_dim} nu={info.input_dim} mass={info.robot_mass:.2f} kg")
-    phase_build(circuit_static(model, info)[0])
+    ric_lib = phase_build(circuit_static(model, info)[0], (info.state_dim, info.input_dim, 16))
     if "--profile" in sys.argv[1:]:
         return phase_profile(model, info, device)
-    ric = phase_riccati(device)
+    ric = phase_riccati(device, ric_lib)
     mer = phase_merit(model, info, device)
     lin = phase_linearize(model, info, device)
     gj = phase_gauss_jordan(device)
@@ -760,8 +787,9 @@ def main():
     kernels = [
         kernel_entry("whole-node linearization (K1)", src + "linearize.cu",
                      "bipedal_control_tpu/ops/pallas_linearize_kernel.py:493", counts["linearize"], lin),
-        kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
-                     src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
+        dict(kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
+                          src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
+             b1_ms=ric["b1_ms"]),
         kernel_entry("merit sums (K4)", src + "merit.cu", "bipedal_control_tpu/ops/pallas_merit.py:253",
                      counts["merit"], mer),
         kernel_entry("batched Gauss-Jordan solve (K5; no production caller)", src + "gauss_jordan.cu",

@@ -52,3 +52,27 @@ def test_kernel_entry_on_cpu_is_the_plain_version():
     a, b = solve_lqr_pallas(*port), solve_lqr(*port)
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_riccati_kernel_build_is_keyed_by_stage_shapes(monkeypatch):
+    """riccati_kernel.build(nx, nu, ne) compiles the stage shapes in: it asks
+    cuda_build for a library under defines that hold them, and two shape
+    sets are two libraries (no nvcc needed: build_library is replaced)."""
+    from types import SimpleNamespace
+
+    from bipedal_control_tpu_torch.ops import cuda_build, riccati_kernel
+
+    requests = []
+
+    def fake_build_library(name, source, defines):
+        requests.append((name, source, dict(defines)))
+        lib = SimpleNamespace(riccati_solve_f32=SimpleNamespace(), riccati_solve_f64=SimpleNamespace())
+        return SimpleNamespace(lib=lib, ptxas_report="", build_seconds=0.0)
+
+    monkeypatch.setattr(cuda_build, "build_library", fake_build_library)
+    a = riccati_kernel.build(22, 22, 16)
+    b = riccati_kernel.build(7, 5, 3)
+    assert [r[:2] for r in requests] == [("riccati", "riccati.cu")] * 2
+    assert requests[0][2] == {"RICCATI_NX": "22", "RICCATI_NU": "22", "RICCATI_NE": "16"}
+    assert requests[1][2] == {"RICCATI_NX": "7", "RICCATI_NU": "5", "RICCATI_NE": "3"}
+    assert a is not b and a.lib.riccati_solve_f32.argtypes is not None
