@@ -49,16 +49,36 @@ __global__ void gj_kernel(const T* __restrict__ A, const T* __restrict__ B, T* _
 }
 
 template <typename T>
+size_t smem_bytes(int n, int k) {
+  return ((size_t)n * (n + k) + 2 * (size_t)(n + k) + 2 * (size_t)n) * sizeof(T);
+}
+
+template <typename T>
 int launch(const void* A, const void* B, void* X, int batch, int n, int k, void* stream) {
   if (batch <= 0) return 0;
-  const size_t smem = ((size_t)n * (n + k) + 2 * (size_t)(n + k) + 2 * (size_t)n) * sizeof(T);
+  const size_t smem = smem_bytes<T>(n, k);
   cudaError_t err = cudaFuncSetAttribute(gj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   gj_kernel<T><<<batch, 256, smem, (cudaStream_t)stream>>>((const T*)A, (const T*)B, (T*)X, n, k);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int blocks_per_sm(int n, int k) {
+  const size_t smem = smem_bytes<T>(n, k);
+  cudaError_t err = cudaFuncSetAttribute(gj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int b = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, gj_kernel<T>, 256, smem);
+  return err == cudaSuccess ? b : -(int)err;
+}
+
 }  // namespace
+
+extern "C" int gauss_jordan_block_threads() { return 256; }
+// resident blocks per SM for n x (n | k) systems in float32 (4) or float64 (8), or -(CUDA error)
+extern "C" int gauss_jordan_blocks_per_sm(int dtype_bytes, int n, int k) {
+  return dtype_bytes == 4 ? blocks_per_sm<float>(n, k) : blocks_per_sm<double>(n, k);
+}
 
 #define GJ_ENTRY(NAME, T)                                                                          \
   extern "C" int NAME(const void* A, const void* B, void* X, int batch, int n, int k, void* stream) { \

@@ -711,3 +711,17 @@ RICCATI_ENTRY(riccati_solve_f32, float)
 RICCATI_ENTRY(riccati_solve_f64, double)
 
 extern "C" int riccati_smem_bytes(int f64) { return (int)(f64 ? Smem<double>::bytes : Smem<float>::bytes); }
+extern "C" int riccati_block_threads() { return NTH; }
+
+template <typename T>
+static int riccati_occupancy() {
+  const size_t smem = Smem<T>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(riccati_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, riccati_kernel<T>, NTH, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+// resident CTAs per SM of the float32 (4) or float64 (8) kernel, or -(CUDA error)
+extern "C" int riccati_blocks_per_sm(int dtype_bytes) {
+  return dtype_bytes == 4 ? riccati_occupancy<float>() : riccati_occupancy<double>();
+}

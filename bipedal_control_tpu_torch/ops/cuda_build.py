@@ -101,6 +101,18 @@ def build_library(name: str, source: str, defines: dict[str, str]) -> BuiltLibra
     return built
 
 
+def resident_per_sm(lib, name: str, dtype_bytes: int, *shape: int) -> tuple[int, int]:
+    """(blocks, warps) of a library's kernel resident on one SM, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor through the library's
+    ``<name>_blocks_per_sm(dtype_bytes, *shape)`` and
+    ``<name>_block_threads()``."""
+    blocks = getattr(lib, f"{name}_blocks_per_sm")(dtype_bytes, *shape)
+    if blocks < 0:
+        raise RuntimeError(f"{name}: CUDA error {-blocks} in the occupancy query")
+    threads = getattr(lib, f"{name}_block_threads")()
+    return blocks, blocks * ((threads + 31) // 32)
+
+
 def check_launch(status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")

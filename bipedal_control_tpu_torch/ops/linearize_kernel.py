@@ -9,6 +9,14 @@ Per (scenario, node) instance the kernel computes the FK-dependent node data
 A, B, c, C, D, e of the same-point RK2 (or euler) structured linearization,
 batch-leading and contiguous, in the layout ``riccati_kernel`` reads.
 
+Each instance is one warp-synchronous group of lanes (16 for H1, two
+instances per warp; ``static_model.group_width``), lane l owning coordinate
+column l; FK runs by tree level (``static_model.level_schedule``), and the
+outputs are written from the lanes' registers.  The kernel is bound by the
+latency of each instance's chain rather than by its 6.8 KB of float32
+stores; the source's note gives its register, shared-memory and occupancy
+arithmetic, and ``cuda_build.resident_per_sm`` what the card fits.
+
 The plain PyTorch version is ``ocp/linearize.py::linearize_node_structured``;
 :func:`make_node_linearizer`'s linearizer runs it for CPU tensors only.  For
 CUDA tensors it launches the kernel or raises, and adds the FK-free cost

@@ -10,7 +10,11 @@ The plain PyTorch version, :func:`merit_sums_plain`, computes the same sums
 from ``ocp/linearize.py::node_defect_eq`` and runs for CPU tensors only.  For
 CUDA tensors :func:`make_merit_sums`' evaluator launches the kernel or raises.
 The kernel is compiled per robot topology (joint count, parents, joint
-types, contact bodies); the numeric constants ride in a parameter tensor.
+types, contact bodies, FK's level schedule and the group width); the
+numeric constants ride in a parameter tensor.  Each instance is one
+warp-synchronous group of lanes on the circuit the linearization kernel
+uses (16 lanes for H1: two flow passes, J v and the four sums reduced by
+shuffles), so 17,152 instances fill the card with ~274k threads.
 """
 from __future__ import annotations
 

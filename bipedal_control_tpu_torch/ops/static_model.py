@@ -82,16 +82,55 @@ def tables_np(sm: StaticModel) -> np.ndarray:
     return np.concatenate([msub[None], move], axis=0)
 
 
+def group_width(nv: int) -> int:
+    """Lanes per instance of the circuit kernels: the next power of two
+    >= nv (a ``__shfl_sync`` width), at least 16 (a lane per equality row),
+    at most a warp."""
+    if nv > 32:
+        raise NotImplementedError(f"the circuit kernels take at most 32 coordinates, got {nv}")
+    return max(16, 1 << (nv - 1).bit_length())
+
+
+def joint_levels(parent: list[int]) -> list[int]:
+    """Depth of each joint in the tree: 0 for a joint on the base (body 0),
+    its parent joint's level + 1 otherwise (joint j moves body j + 1, so the
+    joint whose body is ``parent[j]`` is joint ``parent[j] - 1``)."""
+    levels: list[int] = []
+    for j, par in enumerate(parent):
+        if not 0 <= par <= j:
+            raise ValueError(f"joint {j}: parent body {par} is not an earlier body")
+        levels.append(0 if par == 0 else levels[par - 1] + 1)
+    return levels
+
+
+def level_schedule(parent: list[int]) -> tuple[list[int], list[int]]:
+    """(joints in level order, offsets of each level in it): FK composes
+    the world frames one tree level at a time, every joint of a level at
+    once."""
+    levels = joint_levels(parent)
+    order = sorted(range(len(parent)), key=lambda j: (levels[j], j))
+    start = [0]
+    for d in range(max(levels, default=-1) + 1):
+        start.append(start[-1] + levels.count(d))
+    return order, start
+
+
 def kernel_defines(sm: StaticModel) -> dict[str, str]:
-    """Compile-time robot topology of the circuit kernels."""
+    """Compile-time robot topology of the circuit kernels: the tree, joint
+    types, contact bodies, FK's level schedule and the group width."""
     if len(sm.contact_body) != NUM_CONTACTS:
         raise NotImplementedError(f"the circuit kernels take {NUM_CONTACTS} contacts, got {len(sm.contact_body)}")
     join = lambda xs: ",".join(str(int(v)) for v in xs)
+    order, start = level_schedule(sm.parent)
     return {
         "NJ": str(sm.nj),
         "PARENT_LIST": join(sm.parent),
         "JTYPE_LIST": join(sm.jtype),
         "CONTACT_BODY_LIST": join(sm.contact_body),
+        "NLEVELS": str(len(start) - 1),
+        "LEVEL_ORDER": join(order),
+        "LEVEL_START": join(start),
+        "GROUP": str(group_width(sm.nv)),
     }
 
 

@@ -13,13 +13,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      CTA's chain) with its time per stage, barriers per stage, registers,
      spills and shared memory;
   4. K4 (merit sums) vs its plain version at M=17,152 instances, all four
-     contact modes, float64 and float32;
+     contact modes, float64 and float32; timed at M=17,152 and at M=67 (the
+     B=1 solve's launch);
   5. K1 (whole-node linearization) vs its plain version (the structured
      linearization) at B=256 x N=67 instances, all four contact modes, rk2
-     and euler, position-error gain 0 and 0.35, float64 and float32;
+     and euler, position-error gain 0 and 0.35, float64 and float32; timed
+     at M=17,152 and at M=67;
   6. K5 (batched Gauss-Jordan) vs its plain version on the 17,152 stage-KKT
      systems (38 x 38 | 23) of phase 3's problem, float64 and float32,
-     beside torch.linalg.solve on the same inputs;
+     beside torch.linalg.solve on the same inputs; timed at 17,152 and 67
+     systems;
+  Phases 3-6 print each kernel's resident blocks and warps per SM
+  (cudaOccupancyMaxActiveBlocksPerMultiprocessor, float32).  K1's and K4's
+  times and every M=67 time are device times from a CUDA graph of the
+  launches: timed back to back, a launch shorter than its wrapper's host
+  work (Python, checks, ctypes; ~0.1 ms) would time the host instead;
   7. the production batched RTI solve (make_batched_solver with linearize,
      riccati and merit "pallas": K1, K2+K3, K4) at B=8, N=67 in float64 vs
      the all-plain configuration, at the batched-parity bars of the reference;
@@ -60,7 +68,7 @@ from bipedal_control_tpu_torch.model.urdf import JOINT_REVOLUTE, RobotDescriptio
 from bipedal_control_tpu_torch.ocp.linearize import linearize_node_structured
 from bipedal_control_tpu_torch.ocp.problem import LinearizedNode, NodeRefs, OcpSettings, weight_compensating_input
 from bipedal_control_tpu_torch.ops import gj_kernel, linearize_kernel, merit_kernel, riccati_kernel
-from bipedal_control_tpu_torch.ops.cuda_build import build_libraries
+from bipedal_control_tpu_torch.ops.cuda_build import build_libraries, resident_per_sm
 from bipedal_control_tpu_torch.ops.linalg import gauss_jordan_solve
 from bipedal_control_tpu_torch.ops.static_model import circuit_static, make_static_model, tables_np
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
@@ -220,6 +228,27 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fn, reps: int) -> float:
+    """Device time per call of a launch too short to time back to back:
+    `reps` calls captured in one CUDA graph and replayed under CUDA events,
+    so the host's per-call work (Python, the wrapper's checks, ctypes) is
+    not in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -359,7 +388,14 @@ def phase_build(defines, shapes):
           f"(nvcc in parallel: " + ", ".join(f"{n} {b.build_seconds:.1f} s" for n, b in zip(names, libs)) + ")")
     for n, b in zip(names, libs):
         print(f"[2 build] ptxas {n}: " + " | ".join(ptxas_summary(b.ptxas_report)))
-    return libs[0]
+    return dict(zip(names, libs))
+
+
+def occupancy(lib, name: str, what: str, *shape: int) -> int:
+    """Print the float32 kernel's resident blocks and warps per SM; return the warps."""
+    blocks, warps = resident_per_sm(lib, name, 4, *shape)
+    print(f"[{what}] float32 occupancy: {blocks} blocks = {warps} warps resident per SM")
+    return warps
 
 
 def random_lqr(B: int, N: int, nx: int, nu: int, ne: int, seed: int, device, dtype):
@@ -421,6 +457,8 @@ def phase_riccati(device, lib):
     err = max(rel_err(g, r) for g, r in zip(got, riccati_plain(nodes1, masks1, dx01, regs)))
     require(err <= 1e-3, f"riccati kernel disagrees at B=1 in float32: {err:.3e}")
     out["b1_ms"] = cuda_time_ms(lambda: riccati_kernel.riccati_solve_cuda(nodes1, masks1, dx01, *regs), 50)
+    out["ms_m67"] = out["b1_ms"]  # B = 1: the 67 stages of one scenario
+    out["warps_per_sm"] = occupancy(lib.lib, "riccati", "3 riccati")
     s = 4
     stage_in = 2 * nx * nx + 2 * nx * nu + nu * nu + ne * nx + ne * nu + 2 * nx + nu + 2 * ne
     stage_out = nu * nx + 2 * nu
@@ -449,7 +487,7 @@ def merit_instances(info, M: int, seed: int, device, dtype):
             T(rng.normal(scale=0.05, size=(M, 4))), T(np.full(M, DT)))
 
 
-def phase_merit(model, info, device):
+def phase_merit(model, info, device, lib):
     """K4 vs plain.  Relative error per sum is |got - ref| / (|ref| + floor)
     with floor 1e-12 (f64) and 1e-6 (f32): the sums are O(1e-3..1e4)."""
     out = {}
@@ -467,17 +505,24 @@ def phase_merit(model, info, device):
         require(bool(torch.isfinite(got).all()) and err <= bar, f"merit kernel disagrees in {dtype}: {err:.3e}")
         if dtype == torch.float32:
             out["max_abs_err"] = float((got.double() - ref.double()).abs().max())
-            out["ms"] = cuda_time_ms(lambda: fn(*args), 20)
+            out["ms"] = graph_time_ms(lambda: fn(*args), 20)
             out["plain_ms"] = cuda_time_ms(lambda: merit_kernel.merit_sums_plain(m, info, settings, *args), 5)
+            args67 = merit_instances(info, N_NODES, 4, device, dtype)
+            ref67 = merit_kernel.merit_sums_plain(m, info, settings, *args67).double()
+            err67 = float(((fn(*args67).double() - ref67).abs() / (ref67.abs() + floor)).max())
+            require(err67 <= bar, f"merit kernel disagrees at M={N_NODES}: {err67:.3e}")
+            out["ms_m67"] = graph_time_ms(lambda: fn(*args67), 50)
+    out["warps_per_sm"] = occupancy(lib.lib, "merit", "4 merit")
     nx, nu = info.state_dim, info.input_dim
     sm = make_static_model(model, info.contact_frame_ids)
     out.update(bound(4 * M * (2 * nx + nu + 12 + 1 + 4), k4_ops(sm, M, True, nx)))
-    print(f"[4 merit] float32 M={M}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
-          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    print(f"[4 merit] float32 M={M}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, "
+          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}); M={N_NODES}: kernel {out['ms_m67']:.4f} ms "
+          f"(max rel err {err67:.2e})")
     return out
 
 
-def phase_linearize(model, info, device):
+def phase_linearize(model, info, device, lib):
     """K1 vs plain (ocp/linearize.py::linearize_node_structured) on B x N
     node instances.  float64 bar 1e-9 relative to max(1, max|ref|) per
     field, the reference kernel test's bar.  float32 bar 1e-4: both sides
@@ -515,14 +560,24 @@ def phase_linearize(model, info, device):
             settings = OcpSettings(integrator="rk2", linearize="pallas")
             params = circuit_static(m, info)[1]
             flat = (x, u, xn, flags, vref, pref, dt)
-            out["ms"] = cuda_time_ms(lambda: linearize_kernel.linearize_cuda(params, defines, 0.0, "rk2", *flat), 20)
+            out["ms"] = graph_time_ms(lambda: linearize_kernel.linearize_cuda(params, defines, 0.0, "rk2", *flat), 20)
             plain = lambda: linearize_node_structured(m, info, settings, Q, R, xs, us, xns, refs)
             out["plain_ms"] = cuda_time_ms(plain, 3)
+            # the B = 1 solve's launch: one scenario's N nodes, held to the same bar
+            flat67 = tuple(a[:N] for a in flat)
+            got67 = linearize_kernel.linearize_cuda(params, defines, 0.0, "rk2", *flat67)
+            ref67 = linearize_node_structured(m, info, settings, Q, R, *(a[:1] for a in (xs, us, xns)), refs._replace(
+                **{f: getattr(refs, f)[:1] for f in refs._fields}))
+            err67 = max(rel_err(g, getattr(ref67, f).reshape(g.shape)) for g, f in zip(got67, ("A", "B", "c", "C", "D", "e")))
+            require(err67 <= bar, f"linearize kernel disagrees at M={N}: {err67:.3e}")
+            out["ms_m67"] = graph_time_ms(lambda: linearize_kernel.linearize_cuda(params, defines, 0.0, "rk2", *flat67), 50)
+    out["warps_per_sm"] = occupancy(lib.lib, "linearize", "5 linearize")
     ne, M = 16, B * N
     sm = make_static_model(model, info.contact_frame_ids)
     out.update(bound(4 * M * ((2 * nx + nu + 13) + nx * nx + nx * nu + nx + ne * nx + ne * nu + ne),
                      k1_ops(sm, M, True, nx, nu, ne)))
-    print(f"[5 linearize] float32 M={M} rk2: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+    print(f"[5 linearize] float32 M={N} rk2: kernel {out['ms_m67']:.4f} ms (max rel err {err67:.2e})")
+    print(f"[5 linearize] float32 M={M} rk2: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, "
           f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}; {out['bytes'] / 1e6:.1f} MB, "
           f"{out['ops'] / 1e9:.2f} G operations); kernel launches in this phase "
           f"{linearize_kernel.linearize_cuda.launches - launches_before}")
@@ -543,7 +598,7 @@ def stage_kkt(nodes, masks, dtype):
     return A.reshape(-1, nu + ne, nu + ne).contiguous(), B.reshape(-1, nu + ne, B.shape[-1]).contiguous()
 
 
-def phase_gauss_jordan(device):
+def phase_gauss_jordan(device, lib):
     """K5 vs plain.  float64 bar 1e-10 relative to max(1, max|ref|).  f32
     bar 1e-3, as the Riccati kernel's: the same quasi-definite systems
     (dual_eps 1.2e-5) solved in the same order up to fused multiply-adds
@@ -565,9 +620,13 @@ def phase_gauss_jordan(device):
             out["plain_ms"] = cuda_time_ms(lambda: gauss_jordan_solve(A, B), 5)
             out["library_ms"] = cuda_time_ms(lambda: torch.linalg.solve(A, B), 20)
             batch, n, k = A.shape[0], A.shape[1], B.shape[2]
+            A67, B67 = A[:N_NODES].contiguous(), B[:N_NODES].contiguous()
+            out["ms_m67"] = graph_time_ms(lambda: gj_kernel.gauss_jordan_solve_cuda(A67, B67), 50)
+    out["warps_per_sm"] = occupancy(lib.lib, "gauss_jordan", "6 gauss-jordan", n, k)
     out.update(bound(4 * batch * (n * n + 2 * n * k), k5_ops(batch, n, k)))
     print(f"[6 gauss-jordan] float32: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
-          f"torch.linalg.solve {out['library_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+          f"torch.linalg.solve {out['library_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}); "
+          f"{N_NODES} systems: kernel {out['ms_m67']:.4f} ms")
     return out
 
 
@@ -761,7 +820,8 @@ def phase_profile(model, info, device):
 def kernel_entry(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
-            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res.get("library_ms"),
+            "ms_m67": res["ms_m67"], "warps_per_sm": res["warps_per_sm"]}
 
 
 def main():
@@ -772,13 +832,13 @@ def main():
     model = from_description(desc)
     info = make_info(model, H1_CONTACTS)
     print(f"[robot] {robot}: nj={info.nj} nx={info.state_dim} nu={info.input_dim} mass={info.robot_mass:.2f} kg")
-    ric_lib = phase_build(circuit_static(model, info)[0], (info.state_dim, info.input_dim, 16))
+    libs = phase_build(circuit_static(model, info)[0], (info.state_dim, info.input_dim, 16))
     if "--profile" in sys.argv[1:]:
         return phase_profile(model, info, device)
-    ric = phase_riccati(device, ric_lib)
-    mer = phase_merit(model, info, device)
-    lin = phase_linearize(model, info, device)
-    gj = phase_gauss_jordan(device)
+    ric = phase_riccati(device, libs["riccati"])
+    mer = phase_merit(model, info, device, libs["merit"])
+    lin = phase_linearize(model, info, device, libs["linearize"])
+    gj = phase_gauss_jordan(device, libs["gauss_jordan"])
     phase_parity(model, info, device)
     runs = phase_main(model, info, device)
     phase_single(model, info, device)

@@ -28,6 +28,8 @@ from bipedal_control_tpu_torch.ops.linalg import gauss_jordan_solve
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
 
+from chip_smoke import H1_CONTACTS, h1_shaped_description
+
 
 @pytest.fixture
 def cuda():
@@ -60,6 +62,28 @@ def _biped(device):
     )
     model = from_description(desc, device=device)
     return model, make_info(model, ["lt", "lh", "rt", "rh"])
+
+
+def _h1_shaped(device):
+    """H1's leg layout (10 revolute joints, 16 coordinates): the circuit
+    kernels' lane groups are full, where the 4-joint biped's 10 coordinates
+    leave 6 of 16 lanes without a column."""
+    model = from_description(h1_shaped_description(), device=device)
+    return model, make_info(model, H1_CONTACTS)
+
+
+ROBOTS = {"biped4": _biped, "h1_shaped": _h1_shaped}
+# instance counts: one instance, the B = 1 solve's 67 nodes, 37 (a warp
+# and a block left partly empty: 8 instances per block, 2 per warp), 300
+RAGGED_M = [1, 67, 37, 300]
+
+
+def _standing(info, x):
+    """Lift the base and, for the H1-shaped biped, bend the knees, so the
+    random states stay near a pose the robot can take."""
+    x[:, 8] += 0.6 if info.nj == 4 else 0.98
+    if info.nj == 10:
+        x[:, 12:] += np.array([0.0, 0.0, -0.4, 0.8, -0.4] * 2)
 
 
 def _lqr(rng, B, N, nx, nu, ne, device, dtype, stable=False, masked_stage=None):
@@ -125,14 +149,16 @@ def test_riccati_kernel_refuses_misaligned_input(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M", RAGGED_M)
+@pytest.mark.parametrize("robot", sorted(ROBOTS))
 @pytest.mark.parametrize("integrator", ["rk2", "euler"])
-def test_merit_kernel_matches_plain(cuda, integrator):
-    m, info = _biped(cuda)
+def test_merit_kernel_matches_plain(cuda, integrator, robot, M):
+    m, info = ROBOTS[robot](cuda)
     settings = OcpSettings(integrator=integrator, position_error_gain=0.35)
     rng = np.random.default_rng(1)
-    M, nx, nu = 300, info.state_dim, info.input_dim
+    nx, nu = info.state_dim, info.input_dim
     x = rng.normal(scale=0.4, size=(M, nx))
-    x[:, 8] += 0.6
+    _standing(info, x)
     u = rng.normal(size=(M, nu))
     u[:, 2:12:3] += 30.0
     flags = np.stack([(np.arange(M) >> k) & 1 for k in range(4)], axis=1).astype(float)
@@ -149,7 +175,7 @@ def test_merit_kernel_matches_plain(cuda, integrator):
 def _nodes(rng, info, M, device, dtype):
     nx, nu = info.state_dim, info.input_dim
     x = rng.normal(scale=0.4, size=(M, nx))
-    x[:, 8] += 0.6
+    _standing(info, x)
     u = rng.normal(size=(M, nu))
     u[:, 2:12:3] += 30.0
     flags = np.stack([(np.arange(M) >> k) & 1 for k in range(4)], axis=1).astype(float)
@@ -163,15 +189,17 @@ def _nodes(rng, info, M, device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M", RAGGED_M)
+@pytest.mark.parametrize("robot", sorted(ROBOTS))
 @pytest.mark.parametrize("dtype,integrator", [(torch.float64, "rk2"), (torch.float64, "euler"), (torch.float32, "rk2")])
-def test_linearize_kernel_matches_plain(cuda, dtype, integrator):
-    model, info = _biped(cuda)
+def test_linearize_kernel_matches_plain(cuda, dtype, integrator, robot, M):
+    model, info = ROBOTS[robot](cuda)
     model = model.to(dtype=dtype)
     settings = OcpSettings(integrator=integrator, position_error_gain=0.35)
     nx, nu = info.state_dim, info.input_dim
     Q = torch.diag(torch.linspace(1.0, 3.0, nx, dtype=dtype, device=cuda))
     R = torch.diag(torch.linspace(0.1, 0.5, nu, dtype=dtype, device=cuda))
-    xs, us, xns, refs = _nodes(np.random.default_rng(4), info, 300, cuda, dtype)
+    xs, us, xns, refs = _nodes(np.random.default_rng(4), info, M, cuda, dtype)
     before = linearize_kernel.linearize_cuda.launches
     got = linearize_kernel.make_node_linearizer(model, info, settings, Q, R)(xs, us, xns, refs)
     assert linearize_kernel.linearize_cuda.launches == before + 1
