@@ -9,6 +9,7 @@ compute on identical parameters:
     settings_from_numpy(dataclasses.asdict(settings))
     weights_from_numpy(Q, R)
     refs_from_numpy({name: np.asarray(a) for name, a in refs._asdict().items()})
+    interface_from_numpy({"model": ..., "info": ..., "settings": ..., "Q": Q, "R": R})
 
 Tensors land on ``device``: the card when None (utils/device.py); pass
 ``device="cpu"`` for the CPU.
@@ -88,3 +89,32 @@ def weights_from_numpy(Q, R, dtype=torch.float64, device=None):
 
 def refs_from_numpy(fields: dict, dtype=torch.float64, device=None) -> NodeRefs:
     return NodeRefs(**{name: _tensor(fields[name], dtype, device) for name in NodeRefs._fields})
+
+
+def interface_from_numpy(fields: dict, dtype=torch.float64, device=None):
+    """RobotInterface from ``{"model", "info", "settings", "Q", "R"}`` in
+    the forms the functions above take (the JAX interface's parts), with the
+    circuit tables of the model kernels built for it."""
+    from .interface import RobotInterface
+    from .ops.static_model import circuit_static
+
+    model = model_from_numpy(fields["model"], dtype=dtype, device=device)
+    info = info_from_numpy(fields["info"])
+    Q, R = weights_from_numpy(fields["Q"], fields["R"], dtype=dtype, device=device)
+    return RobotInterface(
+        model=model, info=info, settings=settings_from_numpy(fields["settings"]), Q=Q, R=R,
+        circuit=circuit_static(model, info) if info.model_type == 0 else None,
+    )
+
+
+def interface_to_numpy(iface) -> dict:
+    """Inverse of :func:`interface_from_numpy`: the interface's model, info,
+    settings and weights as numpy arrays and plain values."""
+    info = dataclasses.asdict(iface.info)
+    return {
+        "model": model_to_numpy(iface.model),
+        "info": {k: (np.asarray(v) if isinstance(v, tuple) else v) for k, v in info.items()},
+        "settings": dataclasses.asdict(iface.settings),
+        "Q": iface.Q.detach().cpu().numpy(),
+        "R": iface.R.detach().cpu().numpy(),
+    }

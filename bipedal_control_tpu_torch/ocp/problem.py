@@ -97,6 +97,19 @@ def weight_compensating_input(info: CentroidalModelInfo, contact_flags, nu: int)
     return u
 
 
+def make_node_refs(info: CentroidalModelInfo, gait_table, swing_table, target_table, t, dt):
+    """The references of every node at once from frozen device tables:
+    t, dt (..., N) -> NodeRefs with (..., N, ...) fields (the JAX package
+    vmaps its one-node version over t)."""
+    phase = gait_table.phase_index(t)
+    flags = gait_table.contacts[phase]
+    contacts = torch.arange(NUM_CONTACTS, device=t.device)
+    pref, vref = swing_table.z_position_velocity(contacts, phase[..., None], t[..., None])
+    x_nom = target_table.state_at(t)
+    u_nom = weight_compensating_input(info, flags, info.input_dim)
+    return NodeRefs(t=t, dt=dt, contact_flags=flags, swing_vref=vref, swing_pref=pref, x_nom=x_nom, u_nom=u_nom)
+
+
 # ---------------------------------------------------------------- constraints
 def contact_kinematics(model: RobotModel, info: CentroidalModelInfo, x, u):
     """(positions (..., nc, 3), velocities (..., nc, 3)) of the contact frames."""

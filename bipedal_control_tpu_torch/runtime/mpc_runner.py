@@ -1,0 +1,157 @@
+"""MPC runner: warm-started replanning loop around the SQP
+(runtime/mpc_runner.py counterpart).
+
+Host-side orchestration of the reference's MPC thread + MPC_MRT handoff: it
+owns the reference manager, the previous solution (warm start), and the
+solve's kernel front ends.  The JAX runner fuses each replan into one
+compiled dispatch; here a replan is a short sequence of batched tensor
+calls over the node axis (capture offset, ``build_refs``, cold or warm
+start, ``sqp_solve`` at B = 1), and the linearizer and merit evaluator are
+built once per runner from the interface's circuit tables, so nothing is
+rebuilt or uploaded per replan.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..interface import RobotInterface
+from ..ops.linearize_kernel import make_node_linearizer
+from ..ops.merit_kernel import make_merit_sums
+from ..reference.manager import ReferenceManager
+from ..solver.sqp import SqpSolution, build_refs, initial_trajectory, sqp_solve, warm_start_trajectories
+from ..utils.precision import set_full_f32_matmul
+from ..utils.timing import RepeatedTimer
+
+
+def capture_dq_from_state(cap, nj: int, x, x_ref, gait_table=None, t0=None):
+    """(2, nj) swing-leg joint-reference offsets from the measured lateral
+    error (config.loader.CaptureConfig semantics): rotate the world-frame
+    base-position / CoM-velocity errors into the body frame by the measured
+    yaw, form dq = sign * clip(kp e_y + kv edot_y, +-max_offset), and place
+    it on each leg's hip-roll slot.  x, x_ref (nx,) tensors.
+
+    cap.touchdown_sync (with gait_table/t0 supplied): each leg's (e_y,
+    edot_y) are LIPM-propagated to that leg's next touchdown
+    (GaitTable.next_touchdown_per_leg):
+        e(dt) = e cosh(w dt) + (edot/w) sinh(w dt),  w = sqrt(g/z_ref)."""
+    yaw = x[9]
+    s, c = torch.sin(yaw), torch.cos(yaw)
+    pe = x[6:8] - x_ref[6:8]  # world base-position error
+    ve = x[0:2] - x_ref[0:2]  # world CoM-velocity error (h/m)
+    e_y = -s * pe[0] + c * pe[1]  # body-frame lateral components
+    edot_y = -s * ve[0] + c * ve[1]
+    # soft deadband: exactly zero in nominal locomotion
+    dz = lambda v, db: torch.sign(v) * torch.clamp(torch.abs(v) - db, min=0.0)
+
+    def _dq(e, edot):
+        return cap.sign * torch.clamp(
+            cap.kp * dz(e, cap.pos_deadband) + cap.kv * dz(edot, cap.vel_deadband),
+            -cap.max_offset,
+            cap.max_offset,
+        )
+
+    if getattr(cap, "touchdown_sync", False) and gait_table is not None:
+        w = torch.sqrt(9.81 / torch.clamp(x_ref[8], min=0.3))
+        # per-leg horizon to touchdown, capped at one swing's worth
+        dt_td = torch.clamp(gait_table.next_touchdown_per_leg(t0) - t0, 0.0, 0.6)
+        ch, sh = torch.cosh(w * dt_td), torch.sinh(w * dt_td)  # (2,)
+        dq_legs = _dq(e_y * ch + (edot_y / w) * sh, e_y * w * sh + edot_y * ch)  # (2,)
+    else:
+        dq_legs = _dq(e_y, edot_y).expand(2)
+    out = torch.zeros(2, nj, dtype=x.dtype, device=x.device)
+    out[0, cap.left_index] = dq_legs[0]
+    out[1, cap.right_index] = dq_legs[1]
+    return out
+
+
+def make_capture_hook(cap, nj: int):
+    """(dq_fn, decay, weight_shift): dq_fn(gait, target, t_nodes, x_obs)
+    returns the (2, nj) swing joint-reference offsets, or None when no
+    captureStepping block is configured."""
+
+    def dq_fn(gait, target, t_nodes, x_obs):
+        if cap is None:
+            return None
+        return capture_dq_from_state(cap, nj, x_obs, target.state_at(t_nodes[0]), gait, t_nodes[0])
+
+    decay = cap.decay if (cap is not None and cap.decay > 0) else None
+    ws = cap.weight_shift if (cap is not None and getattr(cap, "weight_shift", 0.0) > 0) else None
+    return dq_fn, decay, ws
+
+
+class MpcRunner:
+    """`solver` selects the replan backend: "sqp" (the SqpMpc analogue).
+    "ilqr" (AL-iLQR, solver/ddp.py) is not ported yet (ROADMAP queue 1
+    item 8) and raises NotImplementedError.  The backends of the solve are
+    the interface's settings: "pallas" means the CUDA kernels for tensors on
+    the card and their plain versions on the CPU."""
+
+    def __init__(
+        self,
+        iface: RobotInterface,
+        reference_manager: ReferenceManager | None = None,
+        solver: str = "sqp",
+    ):
+        if solver == "ilqr":
+            raise NotImplementedError(
+                "solver='ilqr': the port has no AL-iLQR yet (solver/ddp.py, ROADMAP queue 1 item 8)"
+            )
+        if solver != "sqp":
+            raise ValueError(f"unknown solver {solver!r} (expected 'sqp' or 'ilqr')")
+        set_full_f32_matmul()
+        self.iface = iface
+        self.rm = reference_manager or iface.make_reference_manager()
+        self.last_solution: SqpSolution | None = None
+        self.last_frozen = None
+        self.timer = RepeatedTimer("mpc", device=iface.device)
+        self.solver = solver
+        model, info, settings = iface.model, iface.info, iface.settings
+        # the kernels' front ends, built once from the interface's circuit
+        # tables (the plain versions for CPU tensors)
+        self._linearize = (
+            make_node_linearizer(model, info, settings, iface.Q, iface.R, static=iface.circuit)
+            if settings.linearize == "pallas" else None
+        )
+        self._merit = (
+            make_merit_sums(model, info, settings, static=iface.circuit)
+            if settings.merit == "pallas" and len(settings.linesearch_alphas) else None
+        )
+        self._capture_dq, self._decay, self._wshift = make_capture_hook(getattr(iface.task, "capture", None), info.nj)
+        self._num_nodes = settings.num_intervals + 1
+
+    def reset(self):
+        self.last_solution = None
+        self.last_frozen = None
+
+    # command-channel sink: same surface as the JAX runner
+    def set_gait(self, template, start_time: float) -> None:
+        self.rm.set_gait(template, start_time)
+
+    def set_target(self, target) -> None:
+        self.rm.set_target(target)
+
+    def advance(self, t: float, x_measured) -> SqpSolution:
+        """One replan (MPC_MRT_Interface::advanceMpc equivalent)."""
+        return self.advance_frozen(t, x_measured, self.rm.freeze(t))
+
+    def advance_frozen(self, t: float, x_measured, frozen) -> SqpSolution:
+        """Solve against an already-frozen reference set: capture offset,
+        references, cold or warm start, then the B = 1 solve.  Returns the
+        batched solution (leading axis 1)."""
+        iface = self.iface
+        self.last_frozen = frozen
+        with self.timer:
+            x = torch.as_tensor(x_measured, dtype=iface.dtype, device=iface.device).reshape(-1)
+            dq = self._capture_dq(frozen.gait, frozen.target, frozen.t_nodes, x)
+            refs = build_refs(iface.info, frozen.gait, frozen.swing, frozen.target, frozen.t_nodes,
+                              dq, self._decay, self._wshift)
+            t_nodes = frozen.t_nodes[None]
+            if self.last_solution is None:
+                xs, us = initial_trajectory(iface.info, refs, x[None], self._num_nodes)
+            else:
+                prev = self.last_solution
+                xs, us = warm_start_trajectories(prev.t_nodes, prev.x_traj, prev.u_traj, t_nodes)
+            sol = sqp_solve(iface.model, iface.info, iface.settings, iface.Q, iface.R, refs, t_nodes, x[None],
+                            xs, us, merit_sums=self._merit, linearize=self._linearize)
+        self.last_solution = sol
+        return sol

@@ -20,7 +20,7 @@ import torch
 from ..model.centroidal import CentroidalModelInfo
 from ..model.robot_model import RobotModel
 from ..ocp.linearize import linearize_node_structured, node_eval
-from ..ocp.problem import NodeRefs, OcpSettings, node_cost, weight_compensating_input
+from ..ocp.problem import NodeRefs, OcpSettings, make_node_refs, node_cost, weight_compensating_input
 from .riccati import solve_lqr, solve_lqr_pallas
 
 # Filter-linesearch bands on the squared constraint violation (task.info
@@ -202,3 +202,63 @@ def initial_trajectory(info: CentroidalModelInfo, refs: NodeRefs, x_init, num_no
     xs = x_init.unsqueeze(-2).expand(x_init.shape[:-1] + (num_nodes, x_init.shape[-1])).clone()
     us = weight_compensating_input(info, refs.contact_flags, info.input_dim)
     return xs, us
+
+
+def build_refs(info: CentroidalModelInfo, gait_table, swing_table, target_table, t_nodes,
+               dq_swing=None, dq_decay: float | None = None,
+               weight_shift: float | None = None) -> NodeRefs:
+    """NodeRefs of every interval of the node grid t_nodes (N+1,), with the
+    batch axis sqp_solve takes: fields (1, N, ...).  One batched computation
+    over the nodes (the JAX package vmaps over them).
+
+    dq_swing: optional (2, nj) joint-reference offsets (row 0 = left leg,
+    row 1 = right leg) added to x_nom's joint block at every node where that
+    leg is in swing (the capture-stepping hook, config.loader.CaptureConfig).
+    dq_decay: optional time constant [s]; the offset decays
+    exp(-(t-t0)/tau) along the horizon.  weight_shift: optional amplitude
+    [m] of a phase-locked base-y reference offset toward the single-support
+    stance foot, rotated to world by each node's yaw reference."""
+    t = t_nodes[:-1]
+    r = make_node_refs(info, gait_table, swing_table, target_table, t, t_nodes[1:] - t)
+    f = r.contact_flags  # [l_toe, l_heel, r_toe, r_heel]
+    left, right = torch.maximum(f[:, 0], f[:, 1]), torch.maximum(f[:, 2], f[:, 3])
+    x_nom = r.x_nom
+    if dq_swing is not None:
+        dq = (1.0 - left)[:, None] * dq_swing[0] + (1.0 - right)[:, None] * dq_swing[1]
+        if dq_decay is not None:
+            dq = torch.exp(-torch.clamp(t - t_nodes[0], min=0.0) / dq_decay)[:, None] * dq
+        x_nom = torch.cat([x_nom[:, :12], x_nom[:, 12:] + dq], dim=-1)
+    if weight_shift is not None:
+        # +1 left single support, -1 right, 0 double/flight; body +y is
+        # toward the left foot, rotated to world by the node's yaw ref
+        dy = weight_shift * (left - right)
+        yaw = x_nom[:, 9]
+        shift = torch.stack([-torch.sin(yaw) * dy, torch.cos(yaw) * dy], dim=-1)
+        x_nom = torch.cat([x_nom[:, :6], x_nom[:, 6:8] + shift, x_nom[:, 8:]], dim=-1)
+    return NodeRefs(*(a[None] for a in r._replace(x_nom=x_nom)))
+
+
+def _interp_rows(times, rows, t):
+    """rows (..., T, w) on their grid times (..., T), linearly interpolated
+    at t (..., S) with the end rows held: (..., S, w)."""
+    idx = torch.clamp(torch.searchsorted(times, t.contiguous(), right=True), 1, rows.shape[-2] - 1)
+    t0, t1 = torch.gather(times, -1, idx - 1), torch.gather(times, -1, idx)
+    alpha = torch.clamp((t - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0, 1.0)[..., None]
+    pick = lambda i: torch.gather(rows, -2, i[..., None].expand(i.shape + rows.shape[-1:]))
+    return pick(idx - 1) * (1 - alpha) + pick(idx) * alpha
+
+
+def warm_start_trajectories(prev_t_nodes, prev_xs, prev_us, t_nodes):
+    """Shift (x, u) trajectories from their own node grid onto a new one by
+    linear interpolation, over any leading batch dims that match:
+    prev_t_nodes (..., N+1), prev_xs (..., N+1, nx), prev_us (..., N, nu),
+    t_nodes (..., N+1) -> xs (..., N+1, nx), us (..., N, nu)."""
+    xs = _interp_rows(prev_t_nodes, prev_xs, t_nodes)
+    us = _interp_rows(prev_t_nodes[..., :-1].contiguous(), prev_us, t_nodes[..., :-1])
+    return xs, us
+
+
+def warm_start_from_solution(prev: SqpSolution, t_nodes):
+    """Shift the previous solution onto a new time grid (MPC warm start;
+    mpc.coldStart=false)."""
+    return warm_start_trajectories(prev.t_nodes, prev.x_traj, prev.u_traj, t_nodes)

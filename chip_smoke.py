@@ -6,8 +6,9 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: CUDA must be available; prints the card's name and power limit;
   2. build: compiles the four hand-written kernel libraries from csrc/ with
-     nvcc (sm_90a), one nvcc process each, all started together; prints
-     ptxas's registers and spill stores per kernel;
+     nvcc (sm_90a), and G1's builds of K1, K4 and K2+K3 (phase 10), one nvcc
+     process each, all seven started together; prints ptxas's registers and
+     spill stores per kernel;
   3. K2+K3 (Riccati sweep + rollout) vs its plain version at B=256, N=67,
      nx=nu=22, ne=16, float64 and float32, timed at B=256 and at B=1 (one
      CTA's chain) with its time per stage, barriers per stage, registers,
@@ -37,14 +38,32 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      (enqueue), with launch counts;
   9. the single solve (sqp_solve at B=1 with every kernel): warm-chained
      solves timed with CUDA events, with launch counts;
-then a JSON line of per-kernel results and, last, the device JSON line.
+ 10. the task-config front end at G1's widths: make_interface on G1's
+     configuration (configs/g1/* with overrides.info) with bench.py's
+     settings; K2+K3, K4 and K1 against their plain versions at G1's shapes
+     as in phases 3-5 (stage shapes 24/24/16; 32 lanes per instance); then
+     set_gait("trot", 0.1), freeze(0), build_refs, initial_trajectory and
+     the production solve against the all-plain one in float64 at B=8, and
+     the batched solve at B=256 in float32 timed as phase 8;
+ 11. the replan loop: MpcRunner (production settings, float32) inside
+     run_dummy_loop, 1.0 s at 400 Hz MRT and 50 Hz MPC, trot from 0.1 s,
+     held to tests/test_dummy_loop.py's checks at G1's comHeight; replan
+     p50/p99 on CUDA events, host ms per replan, device activities per
+     replan (torch.profiler), the MRT tick; then one cold and one warm
+     replan in float64, production against plain, at phase 7's bars;
+then a JSON line of G1's solve and loop results, a JSON line of per-kernel
+results (with each model kernel's G1 figures under "g1") and, last, the
+device JSON line.
 With --profile, phases 1-2 are followed by torch.profiler over warm B=256
 float32 solves of the production and "structured" configurations (device
 busy share, device time by kernel, the host's synchronising runtime calls).
 
-The robot is H1-shaped (10 leg joints, 4 sole contacts, upper body welded
-into the base, ~47 kg): nx = nu = 22 and ne = 16 as for H1.  When
-$BIPEDAL_ASSETS holds the H1 URDF, H1 itself is loaded instead.  Weights,
+The robot of phases 3-9 is H1-shaped (10 leg joints, 4 sole contacts, upper
+body welded into the base, ~47 kg): nx = nu = 22 and ne = 16 as for H1.
+When $BIPEDAL_ASSETS holds the H1 URDF, H1 itself is loaded instead.  The
+robot of phases 10-11 is the synthetic G1-shaped biped of
+tests/data/g1_shaped_biped.urdf (nx = nu = 24), or G1's own URDF when
+$BIPEDAL_ASSETS holds it.  Weights,
 references and initial states are made from fixed numpy seeds.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over 67 TFLOP/s (H100 SXM
@@ -52,6 +71,7 @@ float32 without tensor cores; NVIDIA's data sheet).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -62,7 +82,8 @@ import time
 import numpy as np
 import torch
 
-from bipedal_control_tpu_torch.model.centroidal import make_info
+from bipedal_control_tpu_torch.interface import make_interface
+from bipedal_control_tpu_torch.model.centroidal import centroidal_flow_map, make_info
 from bipedal_control_tpu_torch.model.robot_model import from_description
 from bipedal_control_tpu_torch.model.urdf import JOINT_REVOLUTE, RobotDescription, load_urdf
 from bipedal_control_tpu_torch.ocp.linearize import linearize_node_structured
@@ -72,8 +93,11 @@ from bipedal_control_tpu_torch.ops.cuda_build import build_libraries, resident_p
 from bipedal_control_tpu_torch.ops.linalg import gauss_jordan_solve
 from bipedal_control_tpu_torch.ops.static_model import circuit_static, make_static_model, tables_np
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
+from bipedal_control_tpu_torch.robots import get_assets
+from bipedal_control_tpu_torch.runtime.mpc_runner import MpcRunner
+from bipedal_control_tpu_torch.sim.dummy_loop import run_dummy_loop
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
-from bipedal_control_tpu_torch.solver.sqp import initial_trajectory, sqp_solve
+from bipedal_control_tpu_torch.solver.sqp import build_refs, initial_trajectory, sqp_solve, warm_start_trajectories
 from bipedal_control_tpu_torch.utils.precision import set_full_f32_matmul
 
 H1_LEG_JOINTS = [
@@ -83,6 +107,7 @@ H1_LEG_JOINTS = [
 ]
 H1_CONTACTS = ["left_sole_1_link", "left_sole_2_link", "right_sole_1_link", "right_sole_2_link"]
 H1_URDF = "bipedal_robot_example/unitree_h1/h1_description/urdf/h1_with_sole.urdf"
+G1_SHAPED_URDF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "g1_shaped_biped.urdf")
 N_NODES, DT = 67, 0.015
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -376,15 +401,20 @@ def ptxas_summary(report: str) -> list[str]:
     return out
 
 
-def phase_build(defines, shapes):
-    """shapes: the main path's (nx, nu, ne), compiled into the Riccati kernel."""
-    names = ("riccati", "merit", "linearize", "gauss_jordan")
+def phase_build(defines, shapes, g1_defines, g1_shapes):
+    """shapes: the main path's (nx, nu, ne), compiled into the Riccati
+    kernel; g1_defines and g1_shapes: the G1 front end's topology and stage
+    shapes (phases 10-11), a second build of K1, K4 and K2+K3."""
+    names = ("riccati", "merit", "linearize", "gauss_jordan", "riccati_g1", "merit_g1", "linearize_g1")
     t0 = time.perf_counter()
     libs = build_libraries([("riccati", "riccati.cu", riccati_kernel.shape_defines(*shapes)),
                             ("merit", "merit.cu", defines), ("linearize", "linearize.cu", defines),
-                            ("gauss_jordan", "gauss_jordan.cu", {})])
+                            ("gauss_jordan", "gauss_jordan.cu", {}),
+                            ("riccati", "riccati.cu", riccati_kernel.shape_defines(*g1_shapes)),
+                            ("merit", "merit.cu", g1_defines), ("linearize", "linearize.cu", g1_defines)])
     secs = time.perf_counter() - t0
-    print(f"[2 build] riccati.cu merit.cu linearize.cu gauss_jordan.cu for sm_90a in {secs:.1f} s "
+    print(f"[2 build] riccati.cu merit.cu linearize.cu gauss_jordan.cu (and riccati, merit, linearize for G1) "
+          f"for sm_90a in {secs:.1f} s "
           f"(nvcc in parallel: " + ", ".join(f"{n} {b.build_seconds:.1f} s" for n, b in zip(names, libs)) + ")")
     for n, b in zip(names, libs):
         print(f"[2 build] ptxas {n}: " + " | ".join(ptxas_summary(b.ptxas_report)))
@@ -427,14 +457,14 @@ def riccati_barriers_per_stage(nu: int, ne: int) -> int:
     return (nu + ne + 1) // 2 + 5
 
 
-def phase_riccati(device, lib):
-    """K2+K3 vs plain.  f32 bar 1e-3: the problem is stable and well
+def phase_riccati(device, lib, shapes=(22, 22, 16), tag="3 riccati"):
+    """K2+K3 vs plain at the stage shapes (nx, nu, ne).  f32 bar 1e-3: the problem is stable and well
     conditioned (unit-dominant Hessians, dual_eps = 1.2e-5 in f32), so two
     float32 evaluations of the same sweep in different summation orders
     agree to ~1e-5; 1e-3 leaves room without hiding a wrong entry (a wrong
     element of K is O(0.1))."""
     out = {}
-    B, N, nx, nu, ne = 256, N_NODES, 22, 22, 16
+    B, N, (nx, nu, ne) = 256, N_NODES, shapes
     for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
         nodes, masks, dx0 = random_lqr(B, N, nx, nu, ne, 7, device, dtype)
         regs = _regs(dtype)
@@ -443,7 +473,7 @@ def phase_riccati(device, lib):
         torch.cuda.synchronize()
         errs = {n: rel_err(g, r) for n, g, r in zip(("K", "k", "dx", "du"), got, ref)}
         finite = all(bool(torch.isfinite(g).all()) for g in got)
-        print(f"[3 riccati] {str(dtype)[6:]} B={B} N={N}: max rel err "
+        print(f"[{tag}] {str(dtype)[6:]} B={B} N={N} nx={nx} nu={nu} ne={ne}: max rel err "
               + " ".join(f"{n} {v:.2e}" for n, v in errs.items()) + f" (bar {bar:g})")
         require(finite and max(errs.values()) <= bar, f"riccati kernel disagrees in {dtype}: {errs}")
         if dtype == torch.float32:
@@ -458,26 +488,30 @@ def phase_riccati(device, lib):
     require(err <= 1e-3, f"riccati kernel disagrees at B=1 in float32: {err:.3e}")
     out["b1_ms"] = cuda_time_ms(lambda: riccati_kernel.riccati_solve_cuda(nodes1, masks1, dx01, *regs), 50)
     out["ms_m67"] = out["b1_ms"]  # B = 1: the 67 stages of one scenario
-    out["warps_per_sm"] = occupancy(lib.lib, "riccati", "3 riccati")
+    out["warps_per_sm"] = occupancy(lib.lib, "riccati", tag)
     s = 4
     stage_in = 2 * nx * nx + 2 * nx * nu + nu * nu + ne * nx + ne * nu + 2 * nx + nu + 2 * ne
     stage_out = nu * nx + 2 * nu
     out.update(bound(s * (B * N * (stage_in + stage_out) + B * nx + B * (N + 1) * nx), k23_ops(B, N, nx, nu, ne)))
-    print(f"[3 riccati] float32 B={B}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+    print(f"[{tag}] float32 B={B}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
           f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
     ptx = ptxas_summary(lib.ptxas_report)
+    out["registers"] = " | ".join(ptx)
     smem = {d: lib.lib.riccati_smem_bytes(f) for d, f in (("f32", 0), ("f64", 1))}
-    print(f"[3 riccati] float32 B=1: kernel {out['b1_ms']:.4f} ms (max rel err {err:.2e}, bar 1e-3); "
+    print(f"[{tag}] float32 B=1: kernel {out['b1_ms']:.4f} ms (max rel err {err:.2e}, bar 1e-3); "
           f"{out['ms'] * 1e3 / N:.2f} us/stage at B={B}, {out['b1_ms'] * 1e3 / N:.2f} us/stage at B=1; "
           f"{riccati_barriers_per_stage(nu, ne)} barriers/stage; ptxas {' | '.join(ptx)}; "
           f"shared memory per CTA f32 {smem['f32']} B, f64 {smem['f64']} B")
     return out
 
 
-def merit_instances(info, M: int, seed: int, device, dtype):
+def merit_instances(info, M: int, seed: int, device, dtype, x_stand=None):
+    """M random node instances around the standing state x_stand (H1's
+    standing_state when None), all four contact modes."""
     rng = np.random.default_rng(seed)
     nx, nu = info.state_dim, info.input_dim
-    x = standing_state(info.nj)[None] + rng.normal(scale=0.05, size=(M, nx))
+    x_stand = standing_state(info.nj) if x_stand is None else np.asarray(x_stand)
+    x = x_stand[None] + rng.normal(scale=0.05, size=(M, nx))
     modes = rng.integers(0, 4, size=M)  # FLY / LF / RF / STANCE
     flags = np.stack([(modes & 1) > 0, (modes & 1) > 0, (modes & 2) > 0, (modes & 2) > 0], axis=1).astype(float)
     u = weight_compensating_input(info, torch.as_tensor(flags), nu).numpy() + rng.normal(scale=2.0, size=(M, nu))
@@ -487,8 +521,8 @@ def merit_instances(info, M: int, seed: int, device, dtype):
             T(rng.normal(scale=0.05, size=(M, 4))), T(np.full(M, DT)))
 
 
-def phase_merit(model, info, device, lib):
-    """K4 vs plain.  Relative error per sum is |got - ref| / (|ref| + floor)
+def phase_merit(model, info, device, lib, x_stand=None, tag="4 merit"):
+    """K4 vs plain, instances around x_stand (merit_instances).  Relative error per sum is |got - ref| / (|ref| + floor)
     with floor 1e-12 (f64) and 1e-6 (f32): the sums are O(1e-3..1e4)."""
     out = {}
     M = 1 * 256 * N_NODES
@@ -496,35 +530,37 @@ def phase_merit(model, info, device, lib):
     for dtype, bar, floor in ((torch.float64, 1e-10, 1e-12), (torch.float32, 1e-4, 1e-6)):
         m = model.to(dtype=dtype)
         fn = merit_kernel.make_merit_sums(m, info, settings)
-        args = merit_instances(info, M, 3, device, dtype)
+        args = merit_instances(info, M, 3, device, dtype, x_stand)
         got = fn(*args)
         ref = merit_kernel.merit_sums_plain(m, info, settings, *args)
         torch.cuda.synchronize()
         err = float(((got.double() - ref.double()).abs() / (ref.double().abs() + floor)).max())
-        print(f"[4 merit] {str(dtype)[6:]} M={M}: max rel err {err:.2e} (bar {bar:g})")
+        print(f"[{tag}] {str(dtype)[6:]} M={M}: max rel err {err:.2e} (bar {bar:g})")
         require(bool(torch.isfinite(got).all()) and err <= bar, f"merit kernel disagrees in {dtype}: {err:.3e}")
         if dtype == torch.float32:
             out["max_abs_err"] = float((got.double() - ref.double()).abs().max())
             out["ms"] = graph_time_ms(lambda: fn(*args), 20)
             out["plain_ms"] = cuda_time_ms(lambda: merit_kernel.merit_sums_plain(m, info, settings, *args), 5)
-            args67 = merit_instances(info, N_NODES, 4, device, dtype)
+            args67 = merit_instances(info, N_NODES, 4, device, dtype, x_stand)
             ref67 = merit_kernel.merit_sums_plain(m, info, settings, *args67).double()
             err67 = float(((fn(*args67).double() - ref67).abs() / (ref67.abs() + floor)).max())
             require(err67 <= bar, f"merit kernel disagrees at M={N_NODES}: {err67:.3e}")
             out["ms_m67"] = graph_time_ms(lambda: fn(*args67), 50)
-    out["warps_per_sm"] = occupancy(lib.lib, "merit", "4 merit")
+    out["warps_per_sm"] = occupancy(lib.lib, "merit", tag)
+    out["registers"] = " | ".join(ptxas_summary(lib.ptxas_report))
     nx, nu = info.state_dim, info.input_dim
     sm = make_static_model(model, info.contact_frame_ids)
     out.update(bound(4 * M * (2 * nx + nu + 12 + 1 + 4), k4_ops(sm, M, True, nx)))
-    print(f"[4 merit] float32 M={M}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, "
+    print(f"[{tag}] float32 M={M}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, "
           f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}); M={N_NODES}: kernel {out['ms_m67']:.4f} ms "
           f"(max rel err {err67:.2e})")
     return out
 
 
-def phase_linearize(model, info, device, lib):
+def phase_linearize(model, info, device, lib, x_stand=None, weights_np=None, tag="5 linearize"):
     """K1 vs plain (ocp/linearize.py::linearize_node_structured) on B x N
-    node instances.  float64 bar 1e-9 relative to max(1, max|ref|) per
+    node instances around x_stand (merit_instances), with the tracking
+    weights weights_np = (Q, R) (H1's pattern, weights(), when None).  float64 bar 1e-9 relative to max(1, max|ref|) per
     field, the reference kernel test's bar.  float32 bar 1e-4: both sides
     round every product to 24 bits and sum in different orders, so they
     differ by a few ulps of the largest entries (~1e-6 relative); a wrong
@@ -536,8 +572,8 @@ def phase_linearize(model, info, device, lib):
     launches_before = linearize_kernel.linearize_cuda.launches
     for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
         m = model.to(dtype=dtype)
-        Q, R = (torch.as_tensor(w, dtype=dtype, device=device) for w in weights(nx, nu))
-        x, u, xn, flags, vref, pref, dt = merit_instances(info, B * N, 9, device, dtype)
+        Q, R = (torch.as_tensor(w, dtype=dtype, device=device) for w in (weights_np or weights(nx, nu)))
+        x, u, xn, flags, vref, pref, dt = merit_instances(info, B * N, 9, device, dtype, x_stand)
         lead = lambda a: a.reshape((B, N) + a.shape[1:])
         refs = NodeRefs(t=lead(torch.zeros_like(dt)), dt=lead(dt), contact_flags=lead(flags), swing_vref=lead(vref),
                         swing_pref=lead(pref), x_nom=lead(x), u_nom=lead(u))
@@ -550,7 +586,7 @@ def phase_linearize(model, info, device, lib):
                 torch.cuda.synchronize()
                 errs = {f: rel_err(getattr(got, f), getattr(ref, f)) for f in LinearizedNode._fields}
                 finite = all(bool(torch.isfinite(t).all()) for t in got)
-                print(f"[5 linearize] {str(dtype)[6:]} B={B} N={N} {integrator} gain {gain}: max rel err "
+                print(f"[{tag}] {str(dtype)[6:]} B={B} N={N} {integrator} gain {gain}: max rel err "
                       + " ".join(f"{n} {v:.1e}" for n, v in errs.items()) + f" (bar {bar:g})")
                 require(finite and max(errs.values()) <= bar, f"linearize kernel disagrees in {dtype}: {errs}")
                 if dtype == torch.float32 and integrator == "rk2" and gain == 0.0:  # the main path's
@@ -571,13 +607,14 @@ def phase_linearize(model, info, device, lib):
             err67 = max(rel_err(g, getattr(ref67, f).reshape(g.shape)) for g, f in zip(got67, ("A", "B", "c", "C", "D", "e")))
             require(err67 <= bar, f"linearize kernel disagrees at M={N}: {err67:.3e}")
             out["ms_m67"] = graph_time_ms(lambda: linearize_kernel.linearize_cuda(params, defines, 0.0, "rk2", *flat67), 50)
-    out["warps_per_sm"] = occupancy(lib.lib, "linearize", "5 linearize")
+    out["warps_per_sm"] = occupancy(lib.lib, "linearize", tag)
+    out["registers"] = " | ".join(ptxas_summary(lib.ptxas_report))
     ne, M = 16, B * N
     sm = make_static_model(model, info.contact_frame_ids)
     out.update(bound(4 * M * ((2 * nx + nu + 13) + nx * nx + nx * nu + nx + ne * nx + ne * nu + ne),
                      k1_ops(sm, M, True, nx, nu, ne)))
-    print(f"[5 linearize] float32 M={N} rk2: kernel {out['ms_m67']:.4f} ms (max rel err {err67:.2e})")
-    print(f"[5 linearize] float32 M={M} rk2: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, "
+    print(f"[{tag}] float32 M={N} rk2: kernel {out['ms_m67']:.4f} ms (max rel err {err67:.2e})")
+    print(f"[{tag}] float32 M={M} rk2: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, "
           f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}; {out['bytes'] / 1e6:.1f} MB, "
           f"{out['ops'] / 1e9:.2f} G operations); kernel launches in this phase "
           f"{linearize_kernel.linearize_cuda.launches - launches_before}")
@@ -648,6 +685,14 @@ def main_settings(config: str) -> OcpSettings:
     )
 
 
+# the reference's batched-parity bars (tests/test_lanes_rti.py)
+PARITY_BARS = {"x_traj": 1e-5, "u_traj": 1e-5, "K": 1e-3, "cost": 1e-5, "defect_norm": 1e-5, "eq_norm": 1e-5}
+
+
+def solution_errors(a, b) -> dict:
+    return {n: rel_err(getattr(a, n), getattr(b, n)) for n in PARITY_BARS}
+
+
 def phase_parity(model, info, device):
     """The production configuration (K1, K2+K3, K4) in float64 at B=8 vs
     the all-plain configuration, at the bars of the reference's
@@ -661,12 +706,11 @@ def phase_parity(model, info, device):
         sols[config] = solver(*solver_inputs(model, info, settings, 8, 11, device, torch.float64))
     torch.cuda.synchronize()
     a, b = sols["production"], sols["plain"]
-    errs = {n: rel_err(getattr(a, n), getattr(b, n)) for n in ("x_traj", "u_traj", "K", "cost", "defect_norm", "eq_norm")}
-    bars = {"x_traj": 1e-5, "u_traj": 1e-5, "K": 1e-3, "cost": 1e-5, "defect_norm": 1e-5, "eq_norm": 1e-5}
+    errs = solution_errors(a, b)
     same_step = bool(torch.equal(a.step_size, b.step_size))
     print("[7 parity] float64 B=8 production vs plain: " + " ".join(f"{n} {v:.2e}" for n, v in errs.items())
           + f" step_size equal {same_step} ({a.step_size.tolist()})")
-    require(all(errs[n] <= bars[n] for n in bars) and same_step, f"production f64 parity failed: {errs}")
+    require(all(errs[n] <= PARITY_BARS[n] for n in PARITY_BARS) and same_step, f"production f64 parity failed: {errs}")
 
 
 def phase_main(model, info, device):
@@ -817,11 +861,218 @@ def phase_profile(model, info, device):
               + "; ".join(f"{k} {n / reps:.1f} x, {t / reps:.3f} ms" for k, (n, t) in sorted(host.items())))
 
 
+# ------------------------------------------------------------------ G1 front end
+def load_g1(device, dtype=torch.float64):
+    """make_interface on G1's configuration (configs/g1/* with
+    overrides.info): G1's own URDF when $BIPEDAL_ASSETS holds it, else the
+    synthetic G1-shaped biped of tests/data."""
+    g1 = get_assets("g1")
+    urdf, robot = g1.urdf, f"unitree G1 ({g1.urdf})"
+    if not (os.environ.get("BIPEDAL_ASSETS") and os.path.exists(urdf)):
+        urdf, robot = G1_SHAPED_URDF, "G1-shaped synthetic biped (G1 URDF not in $BIPEDAL_ASSETS)"
+    iface = make_interface(urdf, g1.task_info, g1.reference_info, g1.gait_info, g1.overrides_info,
+                           device=device, dtype=dtype)
+    iface.settings = g1_settings(iface.settings, "production")
+    return iface, robot
+
+
+def g1_settings(settings, config: str) -> OcpSettings:
+    """bench.py's replacements (bench.py:210-217): one SQP iteration, the
+    single candidate alpha = 1, and the configuration's backends."""
+    linearize, riccati, merit = CONFIGS[config]
+    return dataclasses.replace(settings, sqp_iterations=1, linesearch_alphas=(1.0,), linearize=linearize,
+                               riccati=riccati, merit=merit)
+
+
+def g1_front_end(iface, B: int, seed: int):
+    """bench.py:205-247 on the port: trot from 0.1 s, freeze at 0, build_refs,
+    initial_trajectory, then every input tiled over B scenarios (x_init
+    perturbed per scenario from a seed, except at B = 256, as bench.py)."""
+    rm = iface.make_reference_manager()
+    rm.set_gait(iface.task.gait_library["trot"], 0.1)
+    frozen = rm.freeze(0.0)
+    refs = build_refs(iface.info, frozen.gait, frozen.swing, frozen.target, frozen.t_nodes)
+    x0 = torch.as_tensor(iface.initial_state, dtype=iface.dtype, device=iface.device)
+    xs, us = initial_trajectory(iface.info, refs, x0[None], iface.settings.num_intervals + 1)
+    tile = lambda a: a.expand((B,) + a.shape[1:]).contiguous()
+    x_b = x0[None].expand(B, -1).clone()
+    if seed is not None:
+        noise = np.random.default_rng(seed).normal(scale=0.005, size=tuple(x_b.shape))
+        x_b += torch.as_tensor(noise, dtype=x_b.dtype, device=x_b.device)
+    return NodeRefs(*(tile(f) for f in refs)), tile(frozen.t_nodes[None]), x_b, tile(xs), tile(us)
+
+
+def phase_g1(device, libs, iface, robot):
+    """Phase 10: the front end at G1's widths.  K1, K2+K3 and K4 against
+    their plain versions at G1's shapes; the production solve against the
+    all-plain one in float64 at B = 8; the front end's batched solve at
+    B = 256 in float32, timed."""
+    info, model = iface.info, iface.model
+    nx, nu = info.state_dim, info.input_dim
+    print(f"[10 g1] {robot}: nj={info.nj} nx={nx} nu={nu} mass={info.robot_mass:.3f} kg, "
+          f"N={iface.settings.num_intervals}, dt={iface.settings.dt}, group width "
+          f"{circuit_static(model, info)[0]['GROUP']} lanes")
+    x_stand = iface.initial_state
+    wts = (iface.Q.cpu().numpy(), iface.R.cpu().numpy())
+    out = {"riccati": phase_riccati(device, libs["riccati_g1"], (nx, nu, 16), "10 g1 riccati"),
+           "merit": phase_merit(model, info, device, libs["merit_g1"], x_stand, "10 g1 merit"),
+           "linearize": phase_linearize(model, info, device, libs["linearize_g1"], x_stand, wts, "10 g1 linearize")}
+    # float64 B=8: production vs all plain, from the front end's references
+    sols = {}
+    for config in ("production", "plain"):
+        settings = g1_settings(iface.settings, config)
+        solver = make_batched_solver(model, info, settings, *wts)
+        sols[config] = solver(*g1_front_end(dataclasses.replace(iface, settings=settings), 8, 21))
+    torch.cuda.synchronize()
+    errs = solution_errors(sols["production"], sols["plain"])
+    same_step = bool(torch.equal(sols["production"].step_size, sols["plain"].step_size))
+    print("[10 g1] float64 B=8 production vs plain: " + " ".join(f"{n} {v:.2e}" for n, v in errs.items())
+          + f" step_size equal {same_step} ({sols['production'].step_size.tolist()})")
+    require(all(errs[n] <= PARITY_BARS[n] for n in PARITY_BARS) and same_step, f"G1 f64 parity failed: {errs}")
+    # float32 B=256: the front end's batched solve, 3 warm-up + 10 warm-chained
+    B, steps = 256, 10
+    iface32 = iface.to(dtype=torch.float32)
+    solver = make_batched_solver(model, info, iface.settings, *wts).to(dtype=torch.float32)
+    refs, t_b, x_b, xs, us = g1_front_end(iface32, B, None)
+    for _ in range(3):
+        sol = solver(refs, t_b, x_b, xs, us)
+        xs, us = sol.x_traj, sol.u_traj
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        sol = solver(refs, t_b, x_b, xs, us)
+        xs, us = sol.x_traj, sol.u_traj
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    counts = read_launches()
+    ms = start.elapsed_time(end) / steps
+    require(all(bool(torch.isfinite(getattr(sol, f)).all()) for f in ("x_traj", "u_traj", "K", "defect_norm")),
+            "G1 B=256: non-finite solver output")
+    require(tuple(sol.x_traj.shape) == (B, iface.settings.num_intervals + 1, nx), "G1 B=256: unexpected shape")
+    require(counts["linearize"] > 0 and counts["riccati"] > 0 and counts["merit"] > 0,
+            f"G1 B=256: a kernel of the production path was not launched: {counts}")
+    out["main"] = {"solves_per_s": B * 1000.0 / ms, "ms_per_solve": ms, "host_enqueue_ms": host_ms,
+                   "defect_l1": float(sol.defect_norm.double().mean()), "launches": counts}
+    print(f"[10 g1] float32 B={B} production from the front end's references: {B * 1000.0 / ms:.1f} solves/s "
+          f"({ms:.3f} ms/solve on CUDA events, host enqueue {host_ms:.3f} ms/solve); defect_l1 mean "
+          f"{out['main']['defect_l1']:.4e}; launches {counts}")
+    return out
+
+
+def count_device_activities(fn) -> int:
+    """Kernels, copies and fills the device ran for one call of fn
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def phase_loop(device, iface):
+    """Phase 11: MpcRunner (production settings, float32) inside
+    run_dummy_loop, 1.0 s at 400 Hz MRT and 50 Hz MPC, trot from 0.1 s,
+    held to tests/test_dummy_loop.py's checks at G1's comHeight; then one
+    cold and one warm replan in float64, production against plain."""
+    iface32 = iface.to(dtype=torch.float32)
+    mpc = MpcRunner(iface32)
+    mpc.rm.set_gait(iface32.task.gait_library["trot"], 0.1)
+    advance, timed = mpc.advance, []
+
+    def timed_advance(t, x):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        ev[0].record()
+        sol = advance(t, x)
+        ev[1].record()
+        timed.append((ev, time.perf_counter() - t0))
+        return sol
+
+    mpc.advance = timed_advance
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_dummy_loop(iface32, mpc, iface32.initial_state, duration=1.0, mrt_frequency=400.0, mpc_frequency=50.0)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    n = res.mpc_stats["count"]
+    replan_ms = np.array([a.elapsed_time(b) for (a, b), _ in timed])
+    host_ms = np.array([h for _, h in timed]) * 1e3
+    tick_ms = (wall * 1e3 - host_ms.sum()) / len(res.times)
+    base = res.states[:, 6:12]
+    com_height = iface32.task.com_height
+    health = {"finite": bool(np.all(np.isfinite(res.states))),
+              "max |z - comHeight|": float(np.abs(base[:, 2] - com_height).max()),
+              "max |roll|,|pitch|": float(np.abs(base[:, 4:]).max()),
+              "max |normalised momentum|": float(np.abs(res.states[:, 0:6]).max()), "replans": n}
+    print(f"[11 loop] float32 1.0 s at 400 Hz MRT / 50 Hz MPC, trot from 0.1 s: {health}; final base "
+          f"{np.round(base[-1], 4).tolist()}")
+    require(health["finite"], "dummy loop: non-finite state")
+    require(health["max |z - comHeight|"] <= 0.05, f"dummy loop: base z left comHeight {com_height} +- 0.05")
+    require(health["max |roll|,|pitch|"] < 0.15, "dummy loop: roll/pitch beyond 0.15 rad")
+    require(health["max |normalised momentum|"] < 1.0, "dummy loop: normalised momentum beyond 1")
+    require(n >= 40, f"dummy loop: {n} replans (at least 40)")
+    require(all(counts[k] >= n for k in ("linearize", "riccati", "merit")),
+            f"dummy loop: a kernel was not launched in every replan ({n} replans): {counts}")
+    x_last = torch.as_tensor(res.states[-1], device=device)
+    prev = mpc.last_solution
+
+    def front_end():  # a warm replan's references and warm start, without the solve
+        fr = mpc.rm.freeze(1.0)
+        build_refs(iface32.info, fr.gait, fr.swing, fr.target, fr.t_nodes)
+        warm_start_trajectories(prev.t_nodes, prev.x_traj, prev.u_traj, fr.t_nodes[None])
+
+    activities = count_device_activities(lambda: mpc.advance(1.0, x_last))
+    front = count_device_activities(front_end)
+    flow = count_device_activities(lambda: centroidal_flow_map(iface32.model, iface32.info, x_last, prev.u_traj[0, 0]))
+    out = {"replans": n, "replan_p50_ms": float(np.percentile(replan_ms, 50)),
+           "replan_p99_ms": float(np.percentile(replan_ms, 99)), "host_ms_per_replan": float(host_ms.mean()),
+           "mrt_tick_ms": float(tick_ms), "device_activities_per_replan": activities,
+           "device_activities_front_end": front, "device_activities_per_flow_map": flow,
+           "kernel_launches_per_replan": {k: v / n for k, v in counts.items()}}
+    print(f"[11 loop] replan on CUDA events p50 {out['replan_p50_ms']:.3f} ms, p99 {out['replan_p99_ms']:.3f} ms "
+          f"(first, cold: {replan_ms[0]:.3f} ms); host {out['host_ms_per_replan']:.3f} ms per replan (ends in a "
+          f"synchronise); MRT tick {tick_ms:.3f} ms (policy + RK4 step); device activities (kernels, copies, "
+          f"fills) per warm replan {activities}, of them {front} in the front end (freeze, build_refs, warm "
+          f"start); {flow} per flow-map evaluation (the RK4 step runs four); kernel launches per replan "
+          f"{out['kernel_launches_per_replan']}")
+    # float64: one cold and one warm replan, production vs plain
+    rng = np.random.default_rng(31)
+    x0 = iface.initial_state
+    xs = [x0 + rng.normal(scale=0.005, size=x0.shape) for _ in range(2)]
+    sols = {}
+    for config in ("production", "plain"):
+        runner = MpcRunner(dataclasses.replace(iface, settings=g1_settings(iface.settings, config)))
+        runner.rm.set_gait(iface.task.gait_library["trot"], 0.1)
+        sols[config] = [runner.advance(t, torch.as_tensor(x, device=device)) for t, x in zip((0.0, 0.02), xs)]
+    for k, what in enumerate(("cold", "warm")):
+        a, b = sols["production"][k], sols["plain"][k]
+        errs = solution_errors(a, b)
+        same_step = bool(torch.equal(a.step_size, b.step_size))
+        print(f"[11 loop] float64 {what} replan production vs plain: "
+              + " ".join(f"{n} {v:.2e}" for n, v in errs.items()) + f" step_size equal {same_step}")
+        require(all(errs[n] <= PARITY_BARS[n] for n in PARITY_BARS) and same_step,
+                f"G1 f64 {what} replan parity failed: {errs}")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res.get("library_ms"),
             "ms_m67": res["ms_m67"], "warps_per_sm": res["warps_per_sm"]}
+
+
+def g1_entry(res: dict, launches: int) -> dict:
+    """A kernel's results at G1's shapes (phase 10) for the kernels line."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "ms_m67", "warps_per_sm", "registers")
+    return dict({k: res[k] for k in keys}, launches=launches)
 
 
 def main():
@@ -832,7 +1083,9 @@ def main():
     model = from_description(desc)
     info = make_info(model, H1_CONTACTS)
     print(f"[robot] {robot}: nj={info.nj} nx={info.state_dim} nu={info.input_dim} mass={info.robot_mass:.2f} kg")
-    libs = phase_build(circuit_static(model, info)[0], (info.state_dim, info.input_dim, 16))
+    g1, g1_robot = load_g1(device)
+    libs = phase_build(circuit_static(model, info)[0], (info.state_dim, info.input_dim, 16),
+                       g1.circuit[0], (g1.info.state_dim, g1.info.input_dim, 16))
     if "--profile" in sys.argv[1:]:
         return phase_profile(model, info, device)
     ric = phase_riccati(device, libs["riccati"])
@@ -842,19 +1095,25 @@ def main():
     phase_parity(model, info, device)
     runs = phase_main(model, info, device)
     phase_single(model, info, device)
+    g1_res = phase_g1(device, libs, g1, g1_robot)
+    loop = phase_loop(device, g1)
     counts = runs[0]["launches"]  # the first production run at B=256: 10 solves
+    g1_counts = g1_res["main"]["launches"]  # G1's B=256 production run: 10 solves
     src = "bipedal_control_tpu_torch/csrc/"
     kernels = [
-        kernel_entry("whole-node linearization (K1)", src + "linearize.cu",
-                     "bipedal_control_tpu/ops/pallas_linearize_kernel.py:493", counts["linearize"], lin),
+        dict(kernel_entry("whole-node linearization (K1)", src + "linearize.cu",
+                          "bipedal_control_tpu/ops/pallas_linearize_kernel.py:493", counts["linearize"], lin),
+             registers=lin["registers"], g1=g1_entry(g1_res["linearize"], g1_counts["linearize"])),
         dict(kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
                           src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
-             b1_ms=ric["b1_ms"]),
-        kernel_entry("merit sums (K4)", src + "merit.cu", "bipedal_control_tpu/ops/pallas_merit.py:253",
-                     counts["merit"], mer),
+             b1_ms=ric["b1_ms"], registers=ric["registers"], g1=g1_entry(g1_res["riccati"], g1_counts["riccati"])),
+        dict(kernel_entry("merit sums (K4)", src + "merit.cu", "bipedal_control_tpu/ops/pallas_merit.py:253",
+                          counts["merit"], mer),
+             registers=mer["registers"], g1=g1_entry(g1_res["merit"], g1_counts["merit"])),
         kernel_entry("batched Gauss-Jordan solve (K5; no production caller)", src + "gauss_jordan.cu",
                      "bipedal_control_tpu/ops/pallas_gj.py:77", counts["gauss_jordan"], gj),
     ]
+    print(json.dumps({"g1": {"robot": g1_robot, "solve_b256": g1_res["main"], "dummy_loop": loop}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -14,10 +14,14 @@ relative to max(1, max|ref|): both sides round every product to 24 bits, so
 they differ by a few float32 ulps of the largest entries, far below 1e-4,
 while a wrong entry is off by O(1e-2) or more.
 """
+import dataclasses
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from bipedal_control_tpu_torch.interface import make_interface
 from bipedal_control_tpu_torch.model.centroidal import make_info
 from bipedal_control_tpu_torch.model.robot_model import from_description
 from bipedal_control_tpu_torch.model.urdf import JOINT_PRISMATIC, JOINT_REVOLUTE, RobotDescription
@@ -26,9 +30,15 @@ from bipedal_control_tpu_torch.ocp.problem import LinearizedNode, NodeRefs, OcpS
 from bipedal_control_tpu_torch.ops import gj_kernel, linearize_kernel, merit_kernel, riccati_kernel
 from bipedal_control_tpu_torch.ops.linalg import gauss_jordan_solve
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
+from bipedal_control_tpu_torch.runtime.mpc_runner import MpcRunner
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
 
 from chip_smoke import H1_CONTACTS, h1_shaped_description
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+G1_URDF = os.path.join(REPO, "tests", "data", "g1_shaped_biped.urdf")
+G1_FILES = [os.path.join(REPO, "configs", "g1", f)
+            for f in ("g1_task.info", "g1_reference.info", "g1_gaits.info", "overrides.info")]
 
 
 @pytest.fixture
@@ -72,18 +82,29 @@ def _h1_shaped(device):
     return model, make_info(model, H1_CONTACTS)
 
 
-ROBOTS = {"biped4": _biped, "h1_shaped": _h1_shaped}
+def _g1_shaped(device):
+    """G1's leg layout (12 revolute joints, 18 coordinates): make_interface
+    on configs/g1 and the synthetic tests/data/g1_shaped_biped.urdf.  The
+    circuit kernels run one 32-lane group per instance (one per warp)."""
+    iface = make_interface(G1_URDF, *G1_FILES, device=device)
+    return iface.model, iface.info
+
+
+ROBOTS = {"biped4": _biped, "h1_shaped": _h1_shaped, "g1_shaped": _g1_shaped}
 # instance counts: one instance, the B = 1 solve's 67 nodes, 37 (a warp
-# and a block left partly empty: 8 instances per block, 2 per warp), 300
+# and a block left partly empty: 8 instances per block, 2 per warp at
+# 16 lanes, 1 at 32), 300
 RAGGED_M = [1, 67, 37, 300]
 
 
 def _standing(info, x):
-    """Lift the base and, for the H1-shaped biped, bend the knees, so the
-    random states stay near a pose the robot can take."""
-    x[:, 8] += 0.6 if info.nj == 4 else 0.98
+    """Lift the base and, for the H1- and G1-shaped bipeds, bend the knees,
+    so the random states stay near a pose the robot can take."""
+    x[:, 8] += {4: 0.6, 10: 0.98, 12: 0.665}[info.nj]
     if info.nj == 10:
         x[:, 12:] += np.array([0.0, 0.0, -0.4, 0.8, -0.4] * 2)
+    if info.nj == 12:
+        x[:, 12:] += np.array([-0.4, 0.0, 0.0, 0.8, -0.4, 0.0] * 2)
 
 
 def _lqr(rng, B, N, nx, nu, ne, device, dtype, stable=False, masked_stage=None):
@@ -116,6 +137,8 @@ def _lqr(rng, B, N, nx, nu, ne, device, dtype, stable=False, masked_stage=None):
         (3, 67, 22, 22, 16, torch.float64, None),  # the main path's shapes
         (1, 67, 22, 22, 16, torch.float32, None),  # B = 1, float32
         (2, 12, 22, 22, 16, torch.float64, 5),  # one stage with every constraint row masked
+        (3, 67, 24, 24, 16, torch.float64, None),  # G1's shapes (NKP = 40)
+        (1, 67, 24, 24, 16, torch.float32, None),
     ],
 )
 def test_riccati_kernel_matches_plain(cuda, B, N, nx, nu, ne, dtype, masked_stage):
@@ -262,6 +285,35 @@ def test_batched_solver_kernels_match_plain(cuda, linearize):
         print(f"{linearize} {name}: relative error {err:.3e}, bar {tol:g}")  # the margin, shown by pytest -rP
         assert err < tol, name
     assert torch.equal(sols[0].step_size, sols[1].step_size)
+
+
+@pytest.mark.gpu
+def test_mpc_runner_kernels_match_plain(cuda):
+    """One cold and one warm MpcRunner replan on G1's configuration (the
+    G1-shaped URDF): the production settings (K1, K2+K3, K4 at kG = 32 and
+    stage shapes 24/24/16) against the all-plain ones, float64, at the
+    batched-parity bars."""
+    iface = make_interface(G1_URDF, *G1_FILES, device=cuda)
+    rng = np.random.default_rng(3)
+    xs = [iface.initial_state + rng.normal(scale=0.005, size=iface.initial_state.shape) for _ in range(2)]
+    sols, launched = {}, {}
+    for lin, ric, mer in (("pallas", "pallas", "pallas"), ("structured", "sequential", "xla")):
+        settings = dataclasses.replace(iface.settings, sqp_iterations=1, linesearch_alphas=(1.0,), linearize=lin,
+                                       riccati=ric, merit=mer)
+        mpc = MpcRunner(dataclasses.replace(iface, settings=settings))
+        mpc.rm.set_gait(iface.task.gait_library["trot"], 0.1)
+        before = linearize_kernel.linearize_cuda.launches, riccati_kernel.riccati_solve.launches
+        sols[lin] = [mpc.advance(t, torch.as_tensor(x, device=cuda)) for t, x in zip((0.0, 0.02), xs)]
+        launched[lin] = (linearize_kernel.linearize_cuda.launches - before[0],
+                         riccati_kernel.riccati_solve.launches - before[1])
+    assert launched == {"pallas": (2, 2), "structured": (0, 0)}
+    for got, want in zip(sols["pallas"], sols["structured"]):
+        for name, tol in (("x_traj", 1e-5), ("u_traj", 1e-5), ("K", 1e-3), ("cost", 1e-5), ("defect_norm", 1e-5)):
+            g, w = getattr(got, name), getattr(want, name)
+            err = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+            print(f"replan {name}: relative error {err:.3e}, bar {tol:g}")
+            assert err < tol, name
+        assert torch.equal(got.step_size, want.step_size)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
