@@ -19,6 +19,7 @@ import torch
 
 from ..ops.contract import mv
 from ..ops.linalg import inv6_block
+from ..utils.rotations import global_angular_velocity_from_zyx_rates, zyx_rates_from_global_angular_velocity
 from .kinematics import (
     body_com_positions,
     forward_kinematics,
@@ -164,3 +165,40 @@ def centroidal_flow_map(model: RobotModel, info: CentroidalModelInfo, x, u):
     h_dot = normalized_momentum_rate(model, info, x, u)
     v = generalized_velocity_from_state_input(model, info, x, u)
     return torch.cat([h_dot, v], dim=-1)
+
+
+# ---------------------------------------------------------------- rbd conversions
+def generalized_from_rbd(info: CentroidalModelInfo, rbd_state):
+    """(q, v) generalized coordinates from an rbdState vector (..., 2 nv):
+    rbdState = [euler-zyx, base pos, q_j, omega_world, v_world, dq_j]."""
+    nj = info.nj
+    ngen = 6 + nj
+    euler = rbd_state[..., 0:3]
+    pos = rbd_state[..., 3:6]
+    q_j = rbd_state[..., 6 : 6 + nj]
+    omega_w = rbd_state[..., ngen : ngen + 3]
+    v_lin = rbd_state[..., ngen + 3 : ngen + 6]
+    dq_j = rbd_state[..., ngen + 6 :]
+    q = torch.cat([pos, euler, q_j], dim=-1)
+    euler_rates = zyx_rates_from_global_angular_velocity(euler, omega_w)
+    v = torch.cat([v_lin, euler_rates, dq_j], dim=-1)
+    return q, v
+
+
+def centroidal_state_from_rbd(model: RobotModel, info: CentroidalModelInfo, rbd_state):
+    """rbdState -> centroidal state x
+    (CentroidalModelRbdConversions::computeCentroidalStateFromRbdModel,
+    consumed at BipedalController.cpp:402)."""
+    q, v = generalized_from_rbd(info, rbd_state)
+    A = centroidal_momentum_matrix_info(model, info, q)
+    h_norm = mv(A, v) / info.robot_mass
+    return torch.cat([h_norm, q], dim=-1)
+
+
+def rbd_state_from_centroidal(model: RobotModel, info: CentroidalModelInfo, x, u):
+    """Centroidal (x, u) -> rbdState (inverse of the above)."""
+    q = get_generalized_coordinates(x)
+    v = generalized_velocity_from_state_input(model, info, x, u)
+    euler = q[..., 3:6]
+    omega_w = global_angular_velocity_from_zyx_rates(euler, v[..., 3:6])
+    return torch.cat([euler, q[..., 0:3], q[..., 6:], omega_w, v[..., 0:3], v[..., 6:]], dim=-1)

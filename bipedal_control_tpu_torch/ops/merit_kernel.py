@@ -75,7 +75,9 @@ def merit_sums_cuda(params, defines, gain: float, integrator: str, xs, us, xns, 
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(*[t.data_ptr() for t in tensors], M, float(gain), int(integrator == "rk2"), stream)
     check_launch(status, "merit kernel")
-    merit_sums_cuda.launches += 1
+    # a launch recorded into a CUDA graph runs only at the graph's replays, which call no wrapper
+    if not torch.cuda.is_current_stream_capturing():
+        merit_sums_cuda.launches += 1
     return out
 
 

@@ -86,7 +86,9 @@ def riccati_solve_cuda(nodes, masks, dx0, dual_eps: float, huu_reg: float):
         status = fn(ptrs, dx0.data_ptr(), K.data_ptr(), k.data_ptr(), dx.data_ptr(), du.data_ptr(), Bn, N,
                     float(dual_eps), float(huu_reg), stream)
     check_launch(status, "riccati kernel")
-    riccati_solve.launches += 1
+    # a launch recorded into a CUDA graph runs only at the graph's replays, which call no wrapper
+    if not torch.cuda.is_current_stream_capturing():
+        riccati_solve.launches += 1
     return K, k, dx, du
 
 

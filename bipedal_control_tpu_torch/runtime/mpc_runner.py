@@ -9,15 +9,26 @@ calls over the node axis (capture offset, ``build_refs``, cold or warm
 start, ``sqp_solve`` at B = 1), and the linearizer and merit evaluator are
 built once per runner from the interface's circuit tables, so nothing is
 rebuilt or uploaded per replan.
+
+On the card, with the kernels' settings (linearize, riccati and merit
+"pallas"), each kind of replan (cold and warm start) runs op by op at its
+first use, is then captured in a CUDA graph, and is replayed after that:
+~20 launches a replan instead of ~340.  Every torch call releases the GIL and takes it back, so
+an op-by-op replan on a worker thread waits for the GIL once per operation
+while the 400 Hz control tick holds it (runtime/async_mpc.py); the graph is
+what lets the worker keep its 50 Hz beside the tick.
 """
 from __future__ import annotations
 
 import torch
 
+from ..gait.mode_schedule import GaitTable
+from ..gait.swing import SwingTable
 from ..interface import RobotInterface
 from ..ops.linearize_kernel import make_node_linearizer
 from ..ops.merit_kernel import make_merit_sums
 from ..reference.manager import ReferenceManager
+from ..reference.target import TargetTable
 from ..solver.sqp import SqpSolution, build_refs, initial_trajectory, sqp_solve, warm_start_trajectories
 from ..utils.precision import set_full_f32_matmul
 from ..utils.timing import RepeatedTimer
@@ -79,6 +90,46 @@ def make_capture_hook(cap, nj: int):
     return dq_fn, decay, ws
 
 
+class _GraphedReplan:
+    """One kind of replan (cold or warm start) in a CUDA graph.  The first
+    call runs the replan op by op on a side stream (it loads the kernels'
+    libraries and settles the allocator) and returns its result, then
+    captures the graph; a later call copies its input tensors into the
+    graph's static buffers, replays the graph, and returns copies of the
+    outputs (the next replay overwrites the graph's own).
+
+    The kernels' wrappers count the first call's launches only: a replay
+    runs the captured kernels without calling a wrapper, so what a replayed
+    replan ran on the card is read from a profiler trace (chip_smoke.py
+    phases 11 and 12)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._graph = None
+
+    def __call__(self, inputs):
+        if self._graph is None:
+            return self._run_and_capture(inputs)
+        for static, t in zip(self._static, inputs):
+            static.copy_(t)
+        self._graph.replay()
+        return type(self._out)(*(o.clone() for o in self._out))
+
+    def _run_and_capture(self, inputs):
+        dev = inputs[0].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            sol = self._fn(*inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._static = [t.clone() for t in inputs]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._out = self._fn(*self._static)
+        self._graph = graph
+        return sol
+
+
 class MpcRunner:
     """`solver` selects the replan backend: "sqp" (the SqpMpc analogue).
     "ilqr" (AL-iLQR, solver/ddp.py) is not ported yet (ROADMAP queue 1
@@ -118,6 +169,14 @@ class MpcRunner:
         )
         self._capture_dq, self._decay, self._wshift = make_capture_hook(getattr(iface.task, "capture", None), info.nj)
         self._num_nodes = settings.num_intervals + 1
+        kernels = (settings.linearize, settings.riccati, settings.merit) == ("pallas",) * 3
+        # "cold" / "warm" -> _GraphedReplan, made at first use; None: every replan runs op by op
+        self._graphs = {} if iface.device.type == "cuda" and kernels else None
+
+    @property
+    def graphed(self) -> bool:
+        """Whether replans replay CUDA graphs (the card, the kernels' settings)."""
+        return self._graphs is not None
 
     def reset(self):
         self.last_solution = None
@@ -142,16 +201,31 @@ class MpcRunner:
         self.last_frozen = frozen
         with self.timer:
             x = torch.as_tensor(x_measured, dtype=iface.dtype, device=iface.device).reshape(-1)
-            dq = self._capture_dq(frozen.gait, frozen.target, frozen.t_nodes, x)
-            refs = build_refs(iface.info, frozen.gait, frozen.swing, frozen.target, frozen.t_nodes,
-                              dq, self._decay, self._wshift)
-            t_nodes = frozen.t_nodes[None]
-            if self.last_solution is None:
-                xs, us = initial_trajectory(iface.info, refs, x[None], self._num_nodes)
+            prev = self.last_solution
+            warm = () if prev is None else (prev.t_nodes, prev.x_traj, prev.u_traj)
+            inputs = [x, *frozen.gait, *frozen.swing, *frozen.target, frozen.t_nodes, *warm]
+            if self._graphs is None:
+                sol = self._replan(*inputs)
             else:
-                prev = self.last_solution
-                xs, us = warm_start_trajectories(prev.t_nodes, prev.x_traj, prev.u_traj, t_nodes)
-            sol = sqp_solve(iface.model, iface.info, iface.settings, iface.Q, iface.R, refs, t_nodes, x[None],
-                            xs, us, merit_sums=self._merit, linearize=self._linearize)
+                sol = self._graphs.setdefault("warm" if warm else "cold", _GraphedReplan(self._replan))(inputs)
         self.last_solution = sol
         return sol
+
+    def _replan(self, x, *tables) -> SqpSolution:
+        """One replan as a function of tensors only (what a CUDA graph
+        captures): x, the frozen gait, swing and target tables' fields,
+        the node grid, and for a warm start the previous solution's t_nodes,
+        x_traj and u_traj."""
+        iface = self.iface
+        ng, ns, nt = len(GaitTable._fields), len(SwingTable._fields), len(TargetTable._fields)
+        gait, swing = GaitTable(*tables[:ng]), SwingTable(*tables[ng : ng + ns])
+        target, t_nodes = TargetTable(*tables[ng + ns : ng + ns + nt]), tables[ng + ns + nt]
+        warm = tables[ng + ns + nt + 1 :]
+        dq = self._capture_dq(gait, target, t_nodes, x)
+        refs = build_refs(iface.info, gait, swing, target, t_nodes, dq, self._decay, self._wshift)
+        if warm:
+            xs, us = warm_start_trajectories(*warm, t_nodes[None])
+        else:
+            xs, us = initial_trajectory(iface.info, refs, x[None], self._num_nodes)
+        return sqp_solve(iface.model, iface.info, iface.settings, iface.Q, iface.R, refs, t_nodes[None], x[None],
+                         xs, us, merit_sums=self._merit, linearize=self._linearize)

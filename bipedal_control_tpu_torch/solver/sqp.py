@@ -13,6 +13,7 @@ tensors lie.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -96,6 +97,15 @@ def _check_settings(info: CentroidalModelInfo, settings: OcpSettings) -> None:
         raise NotImplementedError("the port implements FullCentroidalDynamics (model_type 0) only")
 
 
+@functools.lru_cache(maxsize=None)
+def _alphas_tensor(alphas: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The line-search candidates as a tensor on the solve's device, copied
+    there once per (alphas, dtype, device) and never written: a CUDA-graph
+    capture of the solve (runtime/mpc_runner.py) cannot copy from the host,
+    and the batched solves skip one copy per iteration."""
+    return torch.tensor(alphas, dtype=dtype, device=device)
+
+
 def sqp_solve(
     model: RobotModel,
     info: CentroidalModelInfo,
@@ -139,6 +149,7 @@ def sqp_solve(
     masks = eq_mask_from_flags(refs.contact_flags)
     dx0 = torch.zeros(Bb, nx, dtype=dtype, device=device)
     step_size = torch.ones(Bb, dtype=dtype, device=device)
+    alphas = _alphas_tensor(tuple(settings.linesearch_alphas), dtype, device)
     gains = cost = defect = eq = None
     for _ in range(settings.sqp_iterations):
         nodes = linearize(xs[:, :-1], us, xs[:, 1:], refs)
@@ -156,7 +167,6 @@ def sqp_solve(
             eq = e_masked.abs().sum((-1, -2))
             continue
 
-        alphas = torch.tensor(settings.linesearch_alphas, dtype=dtype, device=device)
         xs_c = xs[:, None] + alphas[None, :, None, None] * sol.dx[:, None]  # (B, A, N+1, nx)
         us_c = us[:, None] + alphas[None, :, None, None] * sol.du[:, None]
         refs_a = NodeRefs(*(f[:, None] for f in refs))  # broadcast over candidates

@@ -47,3 +47,13 @@ def euler_rate_map_zyx(theta):
         [one, zero, -sy],
     ]
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def global_angular_velocity_from_zyx_rates(theta, theta_dot):
+    """omega_world = E(theta) @ theta_dot, (..., 3) -> (..., 3)."""
+    return (euler_rate_map_zyx(theta) @ theta_dot[..., None])[..., 0]
+
+
+def zyx_rates_from_global_angular_velocity(theta, omega_world):
+    """Inverse map; singular at pitch = +-pi/2 (gimbal lock), like the reference."""
+    return torch.linalg.solve(euler_rate_map_zyx(theta), omega_world[..., None])[..., 0]

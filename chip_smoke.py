@@ -48,12 +48,40 @@ Phases (each prints its lines; any failure raises and exits non-zero):
  11. the replan loop: MpcRunner (production settings, float32) inside
      run_dummy_loop, 1.0 s at 400 Hz MRT and 50 Hz MPC, trot from 0.1 s,
      held to tests/test_dummy_loop.py's checks at G1's comHeight; replan
-     p50/p99 on CUDA events, host ms per replan, device activities per
-     replan (torch.profiler), the MRT tick; then one cold and one warm
-     replan in float64, production against plain, at phase 7's bars;
-then a JSON line of G1's solve and loop results, a JSON line of per-kernel
-results (with each model kernel's G1 figures under "g1") and, last, the
-device JSON line.
+     p50/p99 on CUDA events, host ms per replan, the MRT tick; then five
+     warm replans under torch.profiler (device activities per replan; the
+     device must run K1, K2+K3 and K4 once in each); then a cold, a warm and
+     two replayed warm replans in float64, production against plain, at
+     phase 7's bars;
+ 12. the controller: BipedalController on G1 (float32, production
+     settings, host WBC with the native C++ backends, cheater estimator),
+     trot from 0.1 s, measured by a kinematic replay (tick k > 0 measures
+     the rbd state of tick k-1's policy point, on the host in numpy; in
+     (a)'s traced run and (c) also by rbd_state_from_centroidal, held to
+     1e-10):
+     (a) synchronous, 400 ticks at 2.5 ms steps (50 replans), driven twice:
+     under torch.profiler, whose kernel events must show K1, K2+K3 and K4
+     run once per replan on the device (a replan after each kind's first
+     replays a CUDA graph, which no wrapper counts), then untraced for the
+     tick's time with and without a replan, the WBC's, the replan's on CUDA
+     events, and the device activities and host synchronisations of a tick
+     without a replan;
+     (b) asynchronous (the MPC worker on the card), the tick paced to a
+     2.5 ms wall grid for 1.0 s in plain Python, then 40 ticks with the
+     worker stopped under torch.profiler (no device activity allowed),
+     then under RtControllerRunner (the native RtLoop at 400 Hz) for 1.0 s:
+     the tick's time, the policy's staleness, the worker's solve time and
+     the loop's cycles (at least 300 ticks written) and overruns; (c) 20
+     synchronous ticks in float64, production against the all-plain
+     configuration on the same replayed measurements
+     (pos_des, vel_des, tau_ff 1e-5 relative to max(1, max|ref|), planned
+     contact flags equal, K1, K2+K3 and K4 run once per production replan);
+  every tick of phase 12 is held to finite commands and |tau_ff| within the
+  WBC's torque limits plus the tick's QP primal residual plus 1e-6 (the
+  ADMM runs a fixed number of iterations, as in the JAX package);
+then a JSON line of G1's solve and loop results, a JSON line of the
+controller's, a JSON line of per-kernel results (with each model kernel's
+G1 figures under "g1") and, last, the device JSON line.
 With --profile, phases 1-2 are followed by torch.profiler over warm B=256
 float32 solves of the production and "structured" configurations (device
 busy share, device time by kernel, the host's synchronising runtime calls).
@@ -83,7 +111,9 @@ import numpy as np
 import torch
 
 from bipedal_control_tpu_torch.interface import make_interface
-from bipedal_control_tpu_torch.model.centroidal import centroidal_flow_map, make_info
+from bipedal_control_tpu_torch.model.centroidal import centroidal_flow_map, make_info, rbd_state_from_centroidal
+from bipedal_control_tpu_torch.model.host_dynamics import generalized_velocity_from_state_input_np
+from bipedal_control_tpu_torch.model.host_model import euler_rate_map_zyx_np, make_host_model
 from bipedal_control_tpu_torch.model.robot_model import from_description
 from bipedal_control_tpu_torch.model.urdf import JOINT_REVOLUTE, RobotDescription, load_urdf
 from bipedal_control_tpu_torch.ocp.linearize import linearize_node_structured
@@ -94,7 +124,9 @@ from bipedal_control_tpu_torch.ops.linalg import gauss_jordan_solve
 from bipedal_control_tpu_torch.ops.static_model import circuit_static, make_static_model, tables_np
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
 from bipedal_control_tpu_torch.robots import get_assets
+from bipedal_control_tpu_torch.runtime.controller import BipedalController, ControllerConfig
 from bipedal_control_tpu_torch.runtime.mpc_runner import MpcRunner
+from bipedal_control_tpu_torch.runtime.rt_runner import RtControllerRunner
 from bipedal_control_tpu_torch.sim.dummy_loop import run_dummy_loop
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
 from bipedal_control_tpu_torch.solver.sqp import build_refs, initial_trajectory, sqp_solve, warm_start_trajectories
@@ -963,24 +995,54 @@ def phase_g1(device, libs, iface, robot):
     return out
 
 
-def count_device_activities(fn) -> int:
-    """Kernels, copies and fills the device ran for one call of fn
-    (torch.profiler)."""
+# the model kernels' names in csrc/, as the profiler's kernel events show them
+KERNEL_NAMES = {"linearize": "linearize_kernel", "riccati": "riccati_kernel", "merit": "merit_kernel",
+                "gauss_jordan": "gj_kernel"}
+
+
+def profile_counts(fn, cpu: bool = True) -> tuple[int, int, dict]:
+    """(device activities, host synchronisations, kernel runs) of one call
+    of fn (torch.profiler): the kernels, copies and fills the device ran;
+    the host's cudaStreamSynchronize and synchronous cudaMemcpy calls (the
+    profiler's own closing cudaDeviceSynchronize is not counted); and how
+    many times the device ran K1, K2+K3, K4 and K5, read from the kernel
+    events' names, so the kernels a CUDA graph's replay ran are counted
+    too.  cpu=False traces the device's activities only (a long window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    events = prof.events()
+    device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    syncs = sum(1 for e in events if e.name in ("cudaStreamSynchronize", "cudaMemcpy"))
+    ran = {k: sum(1 for name in device if re.search(rf"\b{n}\b", name)) for k, n in KERNEL_NAMES.items()}
+    return len(device), syncs, ran
+
+
+def count_device_activities(fn) -> int:
+    """Kernels, copies and fills the device ran for one call of fn."""
+    return profile_counts(fn)[0]
+
+
+def require_runs(ran: dict, replans: int, what: str) -> None:
+    """Raise unless the device ran K1, K2+K3 and K4 once per replan."""
+    require(all(ran[k] == replans for k in ("linearize", "riccati", "merit")),
+            f"{what}: each of {replans} replans must run K1, K2+K3 and K4 once on the device; the profiler "
+            f"saw {ran}")
 
 
 def phase_loop(device, iface):
     """Phase 11: MpcRunner (production settings, float32) inside
     run_dummy_loop, 1.0 s at 400 Hz MRT and 50 Hz MPC, trot from 0.1 s,
-    held to tests/test_dummy_loop.py's checks at G1's comHeight; then one
-    cold and one warm replan in float64, production against plain."""
+    held to tests/test_dummy_loop.py's checks at G1's comHeight; then five
+    warm replans under the profiler, each of which must run K1, K2+K3 and K4
+    once on the device (the loop's replans after each kind's first replay
+    CUDA graphs, which no wrapper counts); then four replans in float64
+    (cold, warm, two warm replays), production against plain."""
     iface32 = iface.to(dtype=torch.float32)
     mpc = MpcRunner(iface32)
     mpc.rm.set_gait(iface32.task.gait_library["trot"], 0.1)
@@ -1018,8 +1080,8 @@ def phase_loop(device, iface):
     require(health["max |roll|,|pitch|"] < 0.15, "dummy loop: roll/pitch beyond 0.15 rad")
     require(health["max |normalised momentum|"] < 1.0, "dummy loop: normalised momentum beyond 1")
     require(n >= 40, f"dummy loop: {n} replans (at least 40)")
-    require(all(counts[k] >= n for k in ("linearize", "riccati", "merit")),
-            f"dummy loop: a kernel was not launched in every replan ({n} replans): {counts}")
+    require(all(counts[k] >= 1 for k in ("linearize", "riccati", "merit")),
+            f"dummy loop: a kernel's wrapper launched it no time in {n} replans: {counts}")
     x_last = torch.as_tensor(res.states[-1], device=device)
     prev = mpc.last_solution
 
@@ -1028,30 +1090,35 @@ def phase_loop(device, iface):
         build_refs(iface32.info, fr.gait, fr.swing, fr.target, fr.t_nodes)
         warm_start_trajectories(prev.t_nodes, prev.x_traj, prev.u_traj, fr.t_nodes[None])
 
-    activities = count_device_activities(lambda: mpc.advance(1.0, x_last))
+    activities, _, ran = profile_counts(lambda: [mpc.advance(1.0 + 0.02 * i, x_last) for i in range(5)])
+    require_runs(ran, 5, "dummy loop's runner, 5 warm replans")
+    activities /= 5
     front = count_device_activities(front_end)
     flow = count_device_activities(lambda: centroidal_flow_map(iface32.model, iface32.info, x_last, prev.u_traj[0, 0]))
     out = {"replans": n, "replan_p50_ms": float(np.percentile(replan_ms, 50)),
            "replan_p99_ms": float(np.percentile(replan_ms, 99)), "host_ms_per_replan": float(host_ms.mean()),
            "mrt_tick_ms": float(tick_ms), "device_activities_per_replan": activities,
            "device_activities_front_end": front, "device_activities_per_flow_map": flow,
-           "kernel_launches_per_replan": {k: v / n for k, v in counts.items()}}
+           "wrapper_launches_in_loop": counts, "kernel_runs_per_warm_replan": {k: v / 5 for k, v in ran.items()}}
     print(f"[11 loop] replan on CUDA events p50 {out['replan_p50_ms']:.3f} ms, p99 {out['replan_p99_ms']:.3f} ms "
           f"(first, cold: {replan_ms[0]:.3f} ms); host {out['host_ms_per_replan']:.3f} ms per replan (ends in a "
           f"synchronise); MRT tick {tick_ms:.3f} ms (policy + RK4 step); device activities (kernels, copies, "
-          f"fills) per warm replan {activities}, of them {front} in the front end (freeze, build_refs, warm "
-          f"start); {flow} per flow-map evaluation (the RK4 step runs four); kernel launches per replan "
-          f"{out['kernel_launches_per_replan']}")
-    # float64: one cold and one warm replan, production vs plain
+          f"fills) per warm replan {activities:g}, of them {front} in the front end (freeze, build_refs, warm "
+          f"start); {flow} per flow-map evaluation (the RK4 step runs four); kernel runs per warm replan (profiler) "
+          f"{out['kernel_runs_per_warm_replan']}; the wrappers' own launches in the loop {counts} (each kind's "
+          f"first replan; later ones replay its graph)")
+    # float64: a cold, a warm and two replayed warm replans, production vs plain
     rng = np.random.default_rng(31)
     x0 = iface.initial_state
-    xs = [x0 + rng.normal(scale=0.005, size=x0.shape) for _ in range(2)]
+    times = (0.0, 0.02, 0.04, 0.06)
+    xs = [x0 + rng.normal(scale=0.005, size=x0.shape) for _ in times]
     sols = {}
     for config in ("production", "plain"):
         runner = MpcRunner(dataclasses.replace(iface, settings=g1_settings(iface.settings, config)))
+        require(runner.graphed == (config == "production"), f"{config} runner: graphed {runner.graphed}")
         runner.rm.set_gait(iface.task.gait_library["trot"], 0.1)
-        sols[config] = [runner.advance(t, torch.as_tensor(x, device=device)) for t, x in zip((0.0, 0.02), xs)]
-    for k, what in enumerate(("cold", "warm")):
+        sols[config] = [runner.advance(t, torch.as_tensor(x, device=device)) for t, x in zip(times, xs)]
+    for k, what in enumerate(("cold", "warm", "warm (graph replay)", "warm (graph replay)")):
         a, b = sols["production"][k], sols["plain"][k]
         errs = solution_errors(a, b)
         same_step = bool(torch.equal(a.step_size, b.step_size))
@@ -1059,6 +1126,308 @@ def phase_loop(device, iface):
               + " ".join(f"{n} {v:.2e}" for n, v in errs.items()) + f" step_size equal {same_step}")
         require(all(errs[n] <= PARITY_BARS[n] for n in PARITY_BARS) and same_step,
                 f"G1 f64 {what} replan parity failed: {errs}")
+    return out
+
+
+# ------------------------------------------------------------------ controller
+TICK_S = 0.0025  # the 400 Hz control tick
+
+
+def standing_rbd(iface) -> np.ndarray:
+    """rbdState of the interface's initial state at rest
+    (tests/test_commands.py:97)."""
+    x0 = np.asarray(iface.initial_state)
+    return np.concatenate([x0[9:12], x0[6:9], x0[12:], np.zeros(6 + iface.info.nj)])
+
+
+class Replay:
+    """Kinematic replay plant (the port has no simulator yet): the first
+    measurement is the standing rbd state; every later one is the rbd state
+    of the policy point (x_star, u_fb) the controller tracked on its
+    previous tick, computed on the host in float64, so the plant launches
+    nothing on the card.  The conversion runs in numpy on the controller's
+    host model (model/host_dynamics.py), ~0.1 ms: the torch version,
+    model/centroidal.py::rbd_state_from_centroidal, takes ~2-4 ms of torch
+    CPU dispatch per state, more than a 400 Hz tick, and would hold the GIL
+    against the tick and the MPC worker.  With check=True every measurement
+    is also computed by the torch version and the largest difference kept
+    (``check_err``)."""
+
+    def __init__(self, iface, check: bool = False):
+        self.model = iface.model.to(device="cpu", dtype=torch.float64)
+        self.info = iface.info
+        self.hm = make_host_model(iface.model, iface.info)
+        self.check = check
+        self.check_err = 0.0
+        self.rbd = standing_rbd(iface)
+        self.seconds: list[float] = []  # host time of each numpy conversion
+
+    def measure(self, ctrl) -> np.ndarray:
+        if ctrl.last_policy is not None:
+            t0 = time.perf_counter()
+            x, u = ctrl.last_policy
+            v = generalized_velocity_from_state_input_np(self.hm, x, u)
+            omega = euler_rate_map_zyx_np(x[9:12]) @ v[3:6]
+            self.rbd = np.concatenate([x[9:12], x[6:9], x[12:], omega, v[0:3], v[6:]])
+            self.seconds.append(time.perf_counter() - t0)
+            if self.check:
+                ref = rbd_state_from_centroidal(self.model, self.info, torch.from_numpy(x), torch.from_numpy(u))
+                self.check_err = max(self.check_err, float(np.abs(self.rbd - ref.numpy()).max()))
+        return self.rbd
+
+
+def trotting_controller(iface, **cfg) -> BipedalController:
+    ctrl = BipedalController(iface, ControllerConfig(**cfg))
+    ctrl.set_gait(iface.task.gait_library["trot"], 0.1)
+    return ctrl
+
+
+class TorqueReadings:
+    """|tau_ff| against the WBC's torque limits over a run's ticks.  The QP
+    holds the limits as constraints, which its ADMM (a fixed number of
+    iterations, as in the JAX package) meets up to its primal residual: a
+    tick's torque may leave them by at most that tick's residual plus 1e-6."""
+
+    def __init__(self, limits):
+        self.limits = limits
+        self.beyond, self.max_excess, self.max_residual = 0, 0.0, 0.0
+
+    def check(self, cmd, residual: float, what: str) -> None:
+        """Raise unless the joint command is finite and its torque within
+        the limits plus the tick's primal residual plus 1e-6."""
+        require(all(bool(np.all(np.isfinite(c))) for c in cmd), f"{what}: non-finite joint command")
+        excess = float(np.max(np.abs(cmd.tau_ff) - self.limits))
+        require(excess <= residual + 1e-6, f"{what}: tau_ff {excess:.4f} N m beyond the torque limits, more than "
+                f"the QP's primal residual {residual:.4f}")
+        self.beyond += excess > 0.0
+        self.max_excess = max(self.max_excess, excess)
+        self.max_residual = max(self.max_residual, residual)
+
+    def summary(self) -> dict:
+        return {"ticks_beyond_limits": self.beyond, "max_excess_nm": self.max_excess,
+                "max_primal_residual": self.max_residual}
+
+    def __str__(self) -> str:
+        return (f"tau_ff beyond the torque limits on {self.beyond} ticks (max excess {self.max_excess:.4f} N m; "
+                f"largest QP primal residual {self.max_residual:.4f})")
+
+
+def z_offset(rbd) -> float:
+    """The replayed base z's distance from G1's comHeight (0.665 m)."""
+    return abs(float(rbd[5]) - 0.665)
+
+
+def percentiles(samples_s) -> dict:
+    arr = np.asarray(samples_s) * 1e3
+    return {"p50_ms": float(np.percentile(arr, 50)), "p99_ms": float(np.percentile(arr, 99)),
+            "max_ms": float(arr.max()), "count": int(arr.size)}
+
+
+def controller_parity(iface, ticks: int = 20) -> dict:
+    """Synchronous controllers on the production and the all-plain
+    configuration (iface's dtype and device) driven in lockstep on the same
+    replayed measurements (the production controller's replay): the
+    largest relative error of pos_des, vel_des and tau_ff over the ticks,
+    whether the planned contact flags agreed on every tick, and the device's
+    runs of each model kernel over the ticks (profile_counts; only the
+    production controller's replans launch them)."""
+    ctrls = {c: trotting_controller(dataclasses.replace(iface, settings=g1_settings(iface.settings, c)))
+             for c in ("production", "plain")}
+    plant = Replay(iface, check=True)
+    errs = {"pos_des": 0.0, "vel_des": 0.0, "tau_ff": 0.0}
+    flags_equal = []
+
+    def drive():  # starting() runs the first replan
+        for ctrl in ctrls.values():
+            ctrl.starting(0.0, plant.rbd)
+        for k in range(ticks):
+            t = k * TICK_S
+            rbd = plant.measure(ctrls["production"])
+            got, want = (ctrls[c].update(t, rbd) for c in ("production", "plain"))
+            for name in errs:
+                a, b = getattr(got, name), getattr(want, name)
+                errs[name] = max(errs[name], float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max())))
+            t_q = torch.full((1,), t, dtype=iface.dtype, device=iface.device)
+            flags = [ctrls[c].mpc.last_frozen.gait.contact_flags_at(t_q) for c in ("production", "plain")]
+            flags_equal.append(bool(torch.equal(*flags)))
+
+    _, _, ran = profile_counts(drive, cpu=False)
+    return {"errors": errs, "flags_equal": all(flags_equal), "replay_check_err": plant.check_err,
+            "safe": all(c.safe for c in ctrls.values()), "replans": ctrls["production"].mpc.timer.count,
+            "kernels": ran}
+
+
+def sync_run(iface32, torque: TorqueReadings, check_replay: bool):
+    """400 synchronous ticks (1.0 s, 50 replans) of a trotting controller on
+    the replay, each tick checked: (controller, plant, each replan's CUDA
+    events, whether each tick replanned)."""
+    ctrl = trotting_controller(iface32)
+    advance, replans = ctrl.mpc.advance, []
+
+    def timed_advance(t, x):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        sol = advance(t, x)
+        ev[1].record()
+        replans.append(ev)
+        return sol
+
+    ctrl.mpc.advance = timed_advance
+    plant = Replay(iface32, check=check_replay)
+    ctrl.starting(0.0, plant.rbd)
+    replan_tick, z_dev = [], 0.0
+    for k in range(400):
+        n = len(replans)
+        rbd = plant.measure(ctrl)
+        cmd = ctrl.update(k * TICK_S, rbd)
+        replan_tick.append(len(replans) > n)
+        require(ctrl.safe, f"sync controller: unsafe at tick {k}")
+        torque.check(cmd, ctrl.wbc_primal_residual, f"sync tick {k}")
+        z_dev = max(z_dev, z_offset(rbd))
+    require(z_dev <= 0.02, f"sync controller: replayed base z left 0.665 by {z_dev:.4f} m (bar 0.02)")
+    require(plant.check_err <= 1e-10, f"replay: the numpy conversion is {plant.check_err:.3e} from "
+            "rbd_state_from_centroidal (bar 1e-10)")
+    require(len(replans) == 50, f"sync controller: {len(replans)} replans (50 expected)")
+    return ctrl, plant, replans, np.asarray(replan_tick), z_dev
+
+
+def phase_controller(device, iface) -> dict:
+    """Phase 12: BipedalController on G1 (see the module docstring)."""
+    iface32 = iface.to(dtype=torch.float32)
+    limits = np.tile(np.asarray(iface.task.wbc.torque_limits, dtype=np.float64), 2)
+    out = {}
+    # (a) synchronous, 400 ticks and 50 replans, driven twice: under the
+    # profiler (device activities only), whose kernel events show what each
+    # replan ran on the card, then untraced for the times
+    torque = TorqueReadings(limits)
+    traced = []
+    reset_launches()
+    _, _, ran = profile_counts(lambda: traced.append(sync_run(iface32, torque, check_replay=True)), cpu=False)
+    counts = read_launches()
+    _, plant, replans, _, _ = traced[0]
+    n_replans = len(replans)
+    require_runs(ran, n_replans, "sync controller")
+    require(all(counts[k] >= 1 for k in ("linearize", "riccati", "merit")),
+            f"sync controller: a kernel's wrapper launched it no time in {n_replans} replans: {counts}")
+    check_err = plant.check_err
+    ctrl, plant, replans, flag, z_dev = sync_run(iface32, torque, check_replay=False)
+    torch.cuda.synchronize()
+    replan_ms = [a.elapsed_time(b) for a, b in replans]
+    ticks = np.asarray(ctrl.tick_timer.samples)
+    rep = ctrl.report()
+    # a replan tick (t = 1.0), then 5 ticks without one, profiled together
+    ctrl.update(1.0, plant.measure(ctrl))
+    quiet = lambda: [ctrl.update(1.0 + i * TICK_S, plant.measure(ctrl)) for i in range(1, 6)]
+    activities, syncs, _ = profile_counts(quiet)
+    replan_activities, replan_syncs, _ = profile_counts(lambda: ctrl.update(1.02, plant.measure(ctrl)))
+    out["sync"] = {"ticks": int(ticks.size), "replans": n_replans, "tick_no_replan": percentiles(ticks[~flag]),
+                   "tick_replan": percentiles(ticks[flag]), "wbc": percentiles(ctrl.wbc_timer.samples),
+                   "tick_ex_wbc": percentiles(ctrl.tick_ex_timer.samples),
+                   "replan_cuda_events": percentiles(np.asarray(replan_ms) / 1e3),
+                   "device_activities_per_tick_no_replan": activities / 5, "host_syncs_per_tick_no_replan": syncs / 5,
+                   "device_activities_replan_tick": replan_activities, "host_syncs_replan_tick": replan_syncs,
+                   "max |replayed z - 0.665|": z_dev, "kernel_runs_per_replan": {k: v / n_replans for k, v in ran.items()},
+                   "wrapper_launches": counts, "backends": ctrl.backends, "mpc_timer": rep["mpc"],
+                   "torque": torque.summary(), "replay_numpy_vs_torch_max_abs": check_err}
+    s = out["sync"]
+    print(f"[12 controller] sync float32, 400 ticks, {n_replans} replans, backends {ctrl.backends}: the device ran "
+          f"{ran} (profiler) in the traced run, the wrappers launched {counts} (each kind's first replan; the "
+          f"others replay its CUDA graph); the untraced run: tick without "
+          f"replan p50 {s['tick_no_replan']['p50_ms']:.3f} / p99 {s['tick_no_replan']['p99_ms']:.3f} ms, with "
+          f"replan p50 {s['tick_replan']['p50_ms']:.3f} / p99 {s['tick_replan']['p99_ms']:.3f} ms; wbc p50 "
+          f"{s['wbc']['p50_ms']:.3f} / p99 {s['wbc']['p99_ms']:.3f} ms; tick_ex_wbc p50 {s['tick_ex_wbc']['p50_ms']:.3f}"
+          f" / p99 {s['tick_ex_wbc']['p99_ms']:.3f} ms; replan on CUDA events p50 "
+          f"{s['replan_cuda_events']['p50_ms']:.3f} / p99 {s['replan_cuda_events']['p99_ms']:.3f} ms; per tick "
+          f"without replan {activities / 5:g} device activities, {syncs / 5:g} host syncs (replan tick "
+          f"{replan_activities}, {replan_syncs}); max |replayed z - 0.665| {z_dev:.4f} m; both runs: {torque}; "
+          f"replay numpy vs rbd_state_from_centroidal max abs {check_err:.2e}")
+    # (b) asynchronous: plain Python on a 2.5 ms wall grid, then the paused
+    # window, then the native RtLoop
+    ctrl = trotting_controller(iface32, mpc_async=True)
+    plant = Replay(iface32)
+    torque = TorqueReadings(limits)
+    ctrl.starting(0.0, plant.rbd)
+    try:
+        t0, z_dev = time.perf_counter(), 0.0
+        for k in range(400):
+            wait = t0 + k * TICK_S - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            rbd = plant.measure(ctrl)
+            cmd = ctrl.update(k * TICK_S, rbd)
+            require(ctrl.safe and not ctrl.async_mpc.failed, f"async controller: unsafe or worker failed at tick {k}")
+            torque.check(cmd, ctrl.wbc_primal_residual, f"async tick {k}")
+            z_dev = max(z_dev, z_offset(rbd))
+        wall = time.perf_counter() - t0
+        rep = ctrl.report()
+        require(rep["mpc_solves"] >= 40, f"async controller: {rep['mpc_solves']} replans published (at least 40)")
+        ctrl.async_mpc.stop()  # the tick thread alone under the profiler
+        paused = lambda: [ctrl.update(1.0 + i * TICK_S, plant.measure(ctrl)) for i in range(40)]
+        activities, syncs, _ = profile_counts(paused)
+        require(activities == 0, f"async controller: {activities} device activities in 40 ticks (0 allowed)")
+        require(ctrl.safe, "async controller: unsafe in the paused window")
+    finally:
+        ctrl.stop()
+    out["async"] = {"wall_s": wall, "tick": rep["tick"], "tick_ex_wbc": rep["tick_ex_wbc"], "wbc": rep["wbc"],
+                    "policy_staleness_s": rep["policy_staleness_s"], "worker_solve": rep["mpc"],
+                    "replans_published": rep["mpc_solves"], "device_activities_40_paused_ticks": activities,
+                    "host_syncs_40_paused_ticks": syncs, "max |replayed z - 0.665|": z_dev,
+                    "replay_plant": percentiles(plant.seconds), "torque": torque.summary()}
+    a = out["async"]
+    print(f"[12 controller] async float32, 400 ticks paced to 2.5 ms ({wall:.3f} s): tick p50 "
+          f"{a['tick']['p50_ms']:.3f} / p99 {a['tick']['p99_ms']:.3f} / max {a['tick']['max_ms']:.3f} ms; staleness "
+          f"p50 {a['policy_staleness_s']['p50'] * 1e3:.2f} / p99 {a['policy_staleness_s']['p99'] * 1e3:.2f} / max "
+          f"{a['policy_staleness_s']['max'] * 1e3:.2f} ms; worker solve p50 {a['worker_solve']['p50_ms']:.3f} / p99 "
+          f"{a['worker_solve']['p99_ms']:.3f} ms; {a['replans_published']} replans published; paused worker: "
+          f"{activities} device activities in 40 ticks; max |replayed z - 0.665| {z_dev:.4f} m; replay plant p50 "
+          f"{a['replay_plant']['p50_ms']:.3f} ms per tick (outside the tick's time); {torque}")
+    ctrl = trotting_controller(iface32, mpc_async=True)
+    plant = Replay(iface32)
+    torque = TorqueReadings(limits)
+    ctrl.starting(0.0, plant.rbd)
+    cmds = []  # (command, the tick's QP primal residual), written on the loop's thread after each tick
+    runner = RtControllerRunner(ctrl, read=lambda: plant.measure(ctrl),
+                                write=lambda cmd: cmds.append((cmd, ctrl.wbc_primal_residual)), frequency_hz=400.0,
+                                priority=0)
+    try:
+        runner.start()
+        time.sleep(1.0)
+        loop_stats = runner.stats()
+    finally:
+        runner.stop()
+        ctrl.stop()
+    require(not runner.failed, f"RtControllerRunner: the tick raised {runner.exception!r}")
+    require(ctrl.safe and not ctrl.async_mpc.failed, "RtControllerRunner: unsafe or the worker failed")
+    require(len(cmds) >= 300, f"RtControllerRunner: {len(cmds)} ticks in 1.0 s at 400 Hz (at least 300)")
+    require(ctrl.async_mpc.solve_count >= 40,
+            f"RtControllerRunner: {ctrl.async_mpc.solve_count} replans published (at least 40)")
+    for k, (cmd, residual) in enumerate(cmds):
+        torque.check(cmd, residual, f"rt tick {k}")
+    rep = ctrl.report()
+    out["rt_loop"] = {"loop": loop_stats, "ticks_written": len(cmds), "tick": rep["tick"],
+                      "policy_staleness_s": rep["policy_staleness_s"], "worker_solve": rep["mpc"],
+                      "replans_published": rep["mpc_solves"], "replay_plant": percentiles(plant.seconds),
+                      "torque": torque.summary()}
+    r = out["rt_loop"]
+    print(f"[12 controller] RtControllerRunner 400 Hz, priority 0, 1.0 s: {loop_stats['cycles']} cycles (a cycle is "
+          f"the replay plant's read, the tick and the write; at least 300), {loop_stats['overruns']} overruns, max "
+          f"cycle {loop_stats['max_cycle_ns'] / 1e6:.3f} ms; tick p50 {r['tick']['p50_ms']:.3f} / p99 "
+          f"{r['tick']['p99_ms']:.3f} / max {r['tick']['max_ms']:.3f} ms; replay plant p50 "
+          f"{r['replay_plant']['p50_ms']:.3f} / p99 {r['replay_plant']['p99_ms']:.3f} ms; staleness p50 "
+          f"{r['policy_staleness_s']['p50'] * 1e3:.2f} / p99 {r['policy_staleness_s']['p99'] * 1e3:.2f} ms; "
+          f"worker solve p50 {r['worker_solve']['p50_ms']:.3f} ms; {r['replans_published']} replans published; "
+          f"{torque}")
+    # (c) float64 parity, production against plain
+    par = controller_parity(iface)
+    print(f"[12 controller] float64 20 sync ticks production vs plain: "
+          + " ".join(f"{n} {v:.2e}" for n, v in par["errors"].items())
+          + f" (bar 1e-5); flags equal {par['flags_equal']}; safe {par['safe']}; {par['replans']} replans; the "
+          f"device ran {par['kernels']} (profiler)")
+    require(all(v <= 1e-5 for v in par["errors"].values()) and par["flags_equal"] and par["safe"]
+            and par["replay_check_err"] <= 1e-10,
+            f"controller f64 parity failed: {par}")
+    require_runs(par["kernels"], par["replans"], "controller f64 parity, production")
+    out["parity_f64"] = par
     return out
 
 
@@ -1097,23 +1466,30 @@ def main():
     phase_single(model, info, device)
     g1_res = phase_g1(device, libs, g1, g1_robot)
     loop = phase_loop(device, g1)
+    ctl = phase_controller(device, g1)
+    per_replan = ctl["sync"]["kernel_runs_per_replan"]
     counts = runs[0]["launches"]  # the first production run at B=256: 10 solves
     g1_counts = g1_res["main"]["launches"]  # G1's B=256 production run: 10 solves
     src = "bipedal_control_tpu_torch/csrc/"
     kernels = [
         dict(kernel_entry("whole-node linearization (K1)", src + "linearize.cu",
                           "bipedal_control_tpu/ops/pallas_linearize_kernel.py:493", counts["linearize"], lin),
-             registers=lin["registers"], g1=g1_entry(g1_res["linearize"], g1_counts["linearize"])),
+             registers=lin["registers"], g1=g1_entry(g1_res["linearize"], g1_counts["linearize"]),
+             launches_per_controller_replan=per_replan["linearize"]),
         dict(kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
                           src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
-             b1_ms=ric["b1_ms"], registers=ric["registers"], g1=g1_entry(g1_res["riccati"], g1_counts["riccati"])),
+             b1_ms=ric["b1_ms"], registers=ric["registers"], g1=g1_entry(g1_res["riccati"], g1_counts["riccati"]),
+             launches_per_controller_replan=per_replan["riccati"]),
         dict(kernel_entry("merit sums (K4)", src + "merit.cu", "bipedal_control_tpu/ops/pallas_merit.py:253",
                           counts["merit"], mer),
-             registers=mer["registers"], g1=g1_entry(g1_res["merit"], g1_counts["merit"])),
-        kernel_entry("batched Gauss-Jordan solve (K5; no production caller)", src + "gauss_jordan.cu",
-                     "bipedal_control_tpu/ops/pallas_gj.py:77", counts["gauss_jordan"], gj),
+             registers=mer["registers"], g1=g1_entry(g1_res["merit"], g1_counts["merit"]),
+             launches_per_controller_replan=per_replan["merit"]),
+        dict(kernel_entry("batched Gauss-Jordan solve (K5; no production caller)", src + "gauss_jordan.cu",
+                          "bipedal_control_tpu/ops/pallas_gj.py:77", counts["gauss_jordan"], gj),
+             launches_per_controller_replan=per_replan["gauss_jordan"]),
     ]
     print(json.dumps({"g1": {"robot": g1_robot, "solve_b256": g1_res["main"], "dummy_loop": loop}}))
+    print(json.dumps({"controller": dict(ctl, robot=g1_robot)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

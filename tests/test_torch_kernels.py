@@ -33,7 +33,7 @@ from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
 from bipedal_control_tpu_torch.runtime.mpc_runner import MpcRunner
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
 
-from chip_smoke import H1_CONTACTS, h1_shaped_description
+from chip_smoke import H1_CONTACTS, controller_parity, g1_settings, h1_shaped_description, profile_counts
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G1_URDF = os.path.join(REPO, "tests", "data", "g1_shaped_biped.urdf")
@@ -314,6 +314,60 @@ def test_mpc_runner_kernels_match_plain(cuda):
             print(f"replan {name}: relative error {err:.3e}, bar {tol:g}")
             assert err < tol, name
         assert torch.equal(got.step_size, want.step_size)
+
+
+@pytest.mark.gpu
+def test_mpc_runner_graph_replays_match_op_by_op(cuda):
+    """Four replans (one cold, three warm) of an MpcRunner whose replans
+    replay CUDA graphs against the same replans run op by op, float64 on
+    G1's configuration; either way the device runs K1, K2+K3 and K4 once
+    per replan (torch.profiler's kernel events), and the wrappers count
+    only the launches they make: all four replans op by op, the first cold
+    and the first warm replan graphed (the two later ones replay)."""
+    iface = make_interface(G1_URDF, *G1_FILES, device=cuda)
+    iface.settings = dataclasses.replace(iface.settings, sqp_iterations=1, linesearch_alphas=(1.0,),
+                                         linearize="pallas", riccati="pallas", merit="pallas")
+    rng = np.random.default_rng(4)
+    xs = [iface.initial_state + rng.normal(scale=0.005, size=iface.initial_state.shape) for _ in range(4)]
+    sols, launched = {}, {}
+    for graphed in (True, False):
+        mpc = MpcRunner(iface)
+        assert mpc.graphed
+        if not graphed:
+            mpc._graphs = None  # every replan op by op
+        mpc.rm.set_gait(iface.task.gait_library["trot"], 0.1)
+        wrappers = (linearize_kernel.linearize_cuda, riccati_kernel.riccati_solve, merit_kernel.merit_sums_cuda)
+        before = [k.launches for k in wrappers]
+        replans = lambda: [mpc.advance(t, torch.as_tensor(x, device=cuda)) for t, x in zip((0.0, 0.02, 0.04, 0.06), xs)]
+        _, _, ran = profile_counts(lambda: sols.update({graphed: replans()}), cpu=False)
+        launched[graphed] = [k.launches - b for k, b in zip(wrappers, before)]
+        assert [ran[k] for k in ("linearize", "riccati", "merit")] == [4, 4, 4], (graphed, ran)
+    assert launched == {True: [2, 2, 2], False: [4, 4, 4]}
+    for k, (got, want) in enumerate(zip(sols[True], sols[False])):
+        for name in ("x_traj", "u_traj", "K", "cost", "defect_norm", "eq_norm", "step_size"):
+            g, w = getattr(got, name), getattr(want, name)
+            err = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+            print(f"replan {k} {name}: graph vs op by op relative error {err:.3e}")
+            assert err <= 1e-9, (k, name)
+
+
+@pytest.mark.gpu
+def test_controller_kernels_match_plain(cuda):
+    """20 synchronous BipedalController ticks on G1's configuration (the
+    G1-shaped URDF), float64: the production settings (K1, K2+K3, K4 in
+    every replan) against the all-plain ones on the same replayed
+    measurements (chip_smoke.controller_parity): pos_des, vel_des and
+    tau_ff within 1e-5 relative to max(1, max|ref|), contact flags equal;
+    the device runs K1, K2+K3 and K4 once in each of the three replans
+    (torch.profiler's kernel events; the third replays a CUDA graph)."""
+    iface = make_interface(G1_URDF, *G1_FILES, device=cuda)
+    iface.settings = g1_settings(iface.settings, "production")
+    par = controller_parity(iface)
+    print(f"controller parity: {par}")  # the margins, shown by pytest -rP
+    assert par["replans"] == 3 and [par["kernels"][k] for k in ("linearize", "riccati", "merit")] == [3, 3, 3]
+    assert par["flags_equal"] and par["safe"]
+    for name, err in par["errors"].items():
+        assert err < 1e-5, name
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -12,6 +12,12 @@ this robot, so the horizon is not cut).  The reference runner is built once
 per module, so its cold and warm replans compile once each.  Bars are
 those of the reference's batched-parity test: x/u 1e-5 relative to
 max(1, max|ref|), K 1e-3, and the accepted step exactly.
+
+The module's runners also drive the two packages' BipedalController (the
+reference's with its runner replaced by the module's, after a fresh
+reference manager: test code only) for 20 synchronous ticks, held at
+pos_des, vel_des and tau_ff 1e-5 relative with contact flags and safety
+equal, and the observability records on one solution at 1e-10.
 """
 import dataclasses
 import os
@@ -22,15 +28,23 @@ import pytest
 import torch
 
 from bipedal_control_tpu.interface import make_interface as j_make_interface
+from bipedal_control_tpu.ocp.problem import NodeRefs as JNodeRefs
+from bipedal_control_tpu.runtime import observability as j_obs
+from bipedal_control_tpu.runtime.controller import BipedalController as JBipedalController
+from bipedal_control_tpu.runtime.controller import ControllerConfig as JControllerConfig
 from bipedal_control_tpu.runtime.mpc_runner import MpcRunner as JMpcRunner
 from bipedal_control_tpu.runtime.mrt import evaluate_policy as j_evaluate_policy
 from bipedal_control_tpu.sim.dummy_loop import run_dummy_loop as j_run_dummy_loop
+from bipedal_control_tpu.solver.sqp import SqpSolution as JSqpSolution
 from bipedal_control_tpu_torch import convert
 from bipedal_control_tpu_torch.interface import make_interface
+from bipedal_control_tpu_torch.ocp.problem import NodeRefs
+from bipedal_control_tpu_torch.runtime import observability
+from bipedal_control_tpu_torch.runtime.controller import BipedalController, ControllerConfig
 from bipedal_control_tpu_torch.runtime.mpc_runner import MpcRunner
 from bipedal_control_tpu_torch.runtime.mrt import evaluate_policy
 from bipedal_control_tpu_torch.sim.dummy_loop import run_dummy_loop
-from bipedal_control_tpu_torch.solver.sqp import SqpSolution
+from bipedal_control_tpu_torch.solver.sqp import SqpSolution, build_refs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G1_URDF = os.path.join(REPO, "tests", "data", "g1_shaped_biped.urdf")
@@ -150,6 +164,69 @@ def test_dummy_loop_matches_reference(runners):
     assert _rel(got.inputs, ref.inputs) < 1e-5
     assert got.mpc_stats["count"] == ref.mpc_stats["count"] == 5
     assert np.all(np.isfinite(got.states))
+
+
+def test_controller_matches_reference(runners):
+    """20 synchronous ticks at 400 Hz (0.05 s, 3 replans, trot from 0.1 s) of
+    the port's BipedalController against the reference's, host WBC and
+    cheater estimator, from the same seeded, slightly perturbed standing
+    rbd state."""
+    j_mpc, t_mpc = runners
+    _fresh_trot(runners)
+    j_ctrl = JBipedalController(j_mpc.iface, JControllerConfig())
+    j_ctrl.mpc = j_mpc
+    t_ctrl = BipedalController(t_mpc.iface, ControllerConfig())
+    t_ctrl.mpc = t_mpc
+    assert t_ctrl.backends["host_model"] == t_ctrl.backends["qp"] == "native"
+    x0 = np.asarray(j_mpc.iface.initial_state)
+    nj = j_mpc.iface.info.nj
+    rng = np.random.default_rng(5)
+    rbd0 = np.concatenate([x0[9:12], x0[6:9], x0[12:], np.zeros(6 + nj)])
+    rbd0 += rng.normal(scale=0.002, size=rbd0.shape)
+    j_ctrl.starting(0.0, rbd0)
+    t_ctrl.starting(0.0, rbd0)
+    for k in range(20):
+        t = k * 0.0025
+        rbd = rbd0 + rng.normal(scale=0.001, size=rbd0.shape)
+        want, got = j_ctrl.update(t, rbd), t_ctrl.update(t, rbd)
+        for name in ("pos_des", "vel_des", "tau_ff"):
+            assert _rel(getattr(got, name), getattr(want, name)) < 1e-5, f"tick {k} {name}"
+        np.testing.assert_array_equal(got.kp, want.kp)
+        np.testing.assert_array_equal(got.kd, want.kd)
+        flags = t_mpc.last_frozen.gait.contact_flags_at(torch.tensor(t, dtype=torch.float64)).numpy()
+        np.testing.assert_array_equal(flags, np.asarray(j_mpc.last_frozen.gait.contact_flags_at(jnp.asarray(t))))
+        assert got.tau_ff.shape == (nj,) and t_ctrl.safe == j_ctrl.safe
+    assert t_mpc.timer.count == j_mpc.timer.count == 3
+
+
+def test_observability_matches_reference(runners):
+    """observe_constraints, tracking_error and solve_report on one solution
+    and one set of references (the same arrays in both packages), at 1e-10."""
+    j_mpc, t_mpc = runners
+    _fresh_trot(runners)
+    t_mpc.reset()
+    x0 = np.asarray(t_mpc.iface.initial_state)
+    sol = SqpSolution(*(f[0] for f in t_mpc.advance(0.0, torch.as_tensor(x0))))
+    fr = t_mpc.last_frozen
+    refs = NodeRefs(*(f[0] for f in build_refs(t_mpc.iface.info, fr.gait, fr.swing, fr.target, fr.t_nodes)))
+    j_sol = JSqpSolution(*(jnp.asarray(f.numpy()) for f in sol))
+    j_refs = JNodeRefs(*(jnp.asarray(f.numpy()) for f in refs))
+    j_iface, t_iface = j_mpc.iface, t_mpc.iface
+    got = observability.observe_constraints(t_iface.model, t_iface.info, t_iface.settings, sol, refs)
+    want = j_obs.observe_constraints(j_iface.model, j_iface.info, j_iface.settings, j_sol, j_refs)
+    for name in want._fields:
+        np.testing.assert_array_equal(np.isnan(getattr(got, name)), np.isnan(getattr(want, name)), err_msg=name)
+        assert _rel(np.nan_to_num(getattr(got, name)), np.nan_to_num(getattr(want, name))) < 1e-10, name
+    rng = np.random.default_rng(6)
+    rbd = np.concatenate([x0[9:12], x0[6:9], x0[12:], np.zeros(18)]) + rng.normal(scale=0.05, size=36)
+    got = observability.tracking_error(t_iface.model, t_iface.info, sol.x_traj[3].numpy(), rbd)
+    want = j_obs.tracking_error(j_iface.model, j_iface.info, np.asarray(j_sol.x_traj[3]), rbd)
+    for name in want._fields:
+        assert _rel(getattr(got, name), getattr(want, name)) < 1e-10, name
+    got, want = observability.solve_report(sol), j_obs.solve_report(j_sol)
+    assert got.keys() == want.keys() and got["horizon_nodes"] == want["horizon_nodes"] == 68
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-10 * max(1.0, abs(want[k])), k
 
 
 def test_runner_refuses_what_the_port_lacks(ifaces):
