@@ -10,6 +10,8 @@ compute on identical parameters:
     weights_from_numpy(Q, R)
     refs_from_numpy({name: np.asarray(a) for name, a in refs._asdict().items()})
     interface_from_numpy({"model": ..., "info": ..., "settings": ..., "Q": Q, "R": R})
+    wbc_task_config_from_numpy(dataclasses.asdict(wbc_cfg))
+    kalman_state_from_numpy({"z": np.asarray(state.z), "P": np.asarray(state.P)})
 
 Tensors land on ``device``: the card when None (utils/device.py); pass
 ``device="cpu"`` for the CPU.
@@ -21,10 +23,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from .estim.kalman import KalmanState
 from .model.centroidal import CentroidalModelInfo
 from .model.robot_model import LEAF_FIELDS, RobotModel, ancestor_mask_from_parents
 from .ocp.problem import NodeRefs, OcpSettings
 from .utils.device import resolve_device
+from .wbc.tasks import WbcTaskConfig
 
 
 def _tensor(a, dtype, device):
@@ -118,3 +122,15 @@ def interface_to_numpy(iface) -> dict:
         "Q": iface.Q.detach().cpu().numpy(),
         "R": iface.R.detach().cpu().numpy(),
     }
+
+
+def wbc_task_config_from_numpy(fields: dict) -> WbcTaskConfig:
+    """WbcTaskConfig from ``dataclasses.asdict`` of the reference's (tuples
+    as tuples of floats, scalars as floats)."""
+    cast = lambda v: tuple(float(a) for a in np.asarray(v).reshape(-1)) if np.ndim(v) else float(v)
+    return WbcTaskConfig(**{k: cast(v) for k, v in fields.items()})
+
+
+def kalman_state_from_numpy(fields: dict, dtype=torch.float64, device=None) -> KalmanState:
+    """The contact LKF's state (z, P) from the reference's as numpy arrays."""
+    return KalmanState(z=_tensor(fields["z"], dtype, device), P=_tensor(fields["P"], dtype, device))

@@ -9,7 +9,8 @@ convention) to [linear; angular] momentum about the whole-body com:
 
     A(q) = sum_b [ m_b Jv_cb ; R_b I_b R_b^T Jw_b + m_b skew(c_b - c) Jv_cb ]
 
-Every function takes any number of leading batch dimensions.
+Every function takes any number of leading batch dimensions, and none reads
+a value back to the host, so each can run inside a CUDA graph.
 """
 from __future__ import annotations
 
@@ -19,11 +20,17 @@ import torch
 
 from ..ops.contract import mv
 from ..ops.linalg import inv6_block
-from ..utils.rotations import global_angular_velocity_from_zyx_rates, zyx_rates_from_global_angular_velocity
+from ..utils.device import constant
+from ..utils.rotations import (
+    euler_rate_map_zyx,
+    global_angular_velocity_from_zyx_rates,
+    zyx_rates_from_global_angular_velocity,
+)
 from .kinematics import (
     body_com_positions,
     forward_kinematics,
     frame_position,
+    frame_transform,
     stacked_point_jacobians,
 )
 from .robot_model import RobotModel
@@ -95,9 +102,21 @@ def get_normalized_momentum(x):
     return x[..., 0:6]
 
 
+def get_base_pose(x):
+    return x[..., 6:12]
+
+
 def get_generalized_coordinates(x):
     """q = [base pos, euler-zyx, q_j] from the centroidal state."""
     return x[..., 6:]
+
+
+def get_joint_positions(x, info: CentroidalModelInfo):
+    return x[..., 12 : 12 + info.nj]
+
+
+def get_contact_force(u, contact_index: int):
+    return u[..., 3 * contact_index : 3 * contact_index + 3]
 
 
 def get_contact_forces(u, info: CentroidalModelInfo):
@@ -106,6 +125,14 @@ def get_contact_forces(u, info: CentroidalModelInfo):
 
 def get_joint_velocities(u, info: CentroidalModelInfo):
     return u[..., 3 * info.num_contacts :]
+
+
+def assemble_state(h_norm, base_pose, q_j):
+    return torch.cat([h_norm, base_pose, q_j], dim=-1)
+
+
+def assemble_input(forces_flat, v_j):
+    return torch.cat([forces_flat, v_j], dim=-1)
 
 
 # ---------------------------------------------------------------- CMM
@@ -132,6 +159,11 @@ def centroidal_momentum_matrix(model: RobotModel, q):
     return torch.cat([A_lin, A_ang], dim=-2)
 
 
+def centroidal_momentum_matrix_dot(model: RobotModel, q, v):
+    """dA/dt along (q, v): replaces pinocchio::dccrba (WbcBase.cpp:225-232)."""
+    return torch.func.jvp(lambda qq: centroidal_momentum_matrix(model, qq), (q,), (v,))[1]
+
+
 def generalized_velocity_from_state_input(model: RobotModel, info: CentroidalModelInfo, x, u):
     """v = [v_base; v_j] with v_base = A_b^{-1} (m h_norm - A_j v_j)."""
     q = get_generalized_coordinates(x)
@@ -150,7 +182,7 @@ def normalized_momentum_rate(model: RobotModel, info: CentroidalModelInfo, x, u)
     kin = forward_kinematics(model, q)
     coms = body_com_positions(model, kin)
     com = (model.body_mass[:, None] * coms).sum(-2) / model.total_mass
-    g = torch.tensor(GRAVITY_VECTOR, dtype=x.dtype, device=x.device)
+    g = constant(GRAVITY_VECTOR, x.dtype, x.device)
     forces = get_contact_forces(u, info)  # (..., nc, 3)
     lin = g + forces.sum(-2) / info.robot_mass
     ang = torch.zeros_like(lin)
@@ -202,3 +234,41 @@ def rbd_state_from_centroidal(model: RobotModel, info: CentroidalModelInfo, x, u
     euler = q[..., 3:6]
     omega_w = global_angular_velocity_from_zyx_rates(euler, v[..., 3:6])
     return torch.cat([euler, q[..., 0:3], q[..., 6:], omega_w, v[..., 0:3], v[..., 6:]], dim=-1)
+
+
+def base_kinematics_from_centroidal(model: RobotModel, info: CentroidalModelInfo, x, u, joint_accel):
+    """(basePose, baseVelocity, baseAcceleration), world-frame, with the
+    angular parts as true angular velocity and acceleration
+    (CentroidalModelRbdConversions::computeBaseKinematicsFromCentroidalModel,
+    used by the WBC's base-accel PD task, WbcBase.cpp:254-259)."""
+    q = get_generalized_coordinates(x)
+    v = generalized_velocity_from_state_input(model, info, x, u)
+    base_pose = q[..., 0:6]
+    euler, euler_rates = q[..., 3:6], v[..., 3:6]
+    omega_w = global_angular_velocity_from_zyx_rates(euler, euler_rates)
+    base_velocity = torch.cat([v[..., 0:3], omega_w], dim=-1)
+
+    # differentiate h = A v: A_b vdot_b = m hdot_norm - Adot v - A_j vdot_j
+    A = centroidal_momentum_matrix_info(model, info, q)
+    Adot = torch.func.jvp(lambda qq: centroidal_momentum_matrix_info(model, info, qq), (q,), (v,))[1]
+    h_dot = info.robot_mass * normalized_momentum_rate(model, info, x, u)
+    rhs = h_dot - mv(Adot, v) - mv(A[..., 6:], joint_accel)
+    # solve_ex: solve without the error check that reads a value to the host
+    vdot_b = torch.linalg.solve_ex(A[..., :6], rhs[..., None])[0][..., 0]
+    # omega = E(theta) theta_dot  =>  omega_dot = E theta_ddot + Edot theta_dot
+    Edot = torch.func.jvp(euler_rate_map_zyx, (euler,), (euler_rates,))[1]
+    omega_dot = mv(euler_rate_map_zyx(euler), vdot_b[..., 3:6]) + mv(Edot, euler_rates)
+    base_acceleration = torch.cat([vdot_b[..., 0:3], omega_dot], dim=-1)
+    return base_pose, base_velocity, base_acceleration
+
+
+def contact_positions(model: RobotModel, info: CentroidalModelInfo, q):
+    """(..., nc, 3) world positions of the contact frames."""
+    kin = forward_kinematics(model, q)
+    return torch.stack([frame_position(model, kin, fid) for fid in info.contact_frame_ids], dim=-2)
+
+
+def contact_rotations(model: RobotModel, info: CentroidalModelInfo, q):
+    """(..., nc, 3, 3) world rotations of the contact frames."""
+    kin = forward_kinematics(model, q)
+    return torch.stack([frame_transform(model, kin, fid)[0] for fid in info.contact_frame_ids], dim=-3)

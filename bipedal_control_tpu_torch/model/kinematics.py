@@ -1,10 +1,15 @@
-"""Forward kinematics and point Jacobians (model/kinematics.py counterpart).
+"""Forward kinematics and frame Jacobians (model/kinematics.py counterpart).
 
 Every function takes any number of leading batch dimensions on q.  The tree
-is walked by a Python loop over its (static) joints.
+is walked by a Python loop over its (static) joints.  Nothing here reads a
+value back to the host or copies from it (the masks are cached constants),
+so every function can run inside a CUDA graph.
 
 Jacobian convention: rows = [linear(3); angular(3)], world-aligned axes, at
-the point ("LOCAL_WORLD_ALIGNED").
+the point ("LOCAL_WORLD_ALIGNED").  ``frame_jacobian_dot`` is the exact
+d/dt of that Jacobian along (q, v), a forward-mode derivative
+(``torch.func.jvp``, as the reference's ``jax.jvp``), so
+``a_classical = J @ vdot + Jdot @ v``.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.contract import mm, mv
+from ..utils.device import constant
 from ..utils.rotations import euler_rate_map_zyx, rotmat_from_zyx, skew
 from .robot_model import RobotModel
 from .urdf import JOINT_PRISMATIC, JOINT_REVOLUTE
@@ -85,12 +91,8 @@ def stacked_point_jacobians(model: RobotModel, kin: BodyKin, points, ancestor_ma
     (joint j moves point i)."""
     dtype, device = points.dtype, points.device
     axes, anchors = _joint_world_axes(model, kin)  # (..., nj, 3)
-    mask = torch.as_tensor(np.asarray(ancestor_mask, dtype=np.float64), dtype=dtype, device=device)
-    rev = torch.as_tensor(
-        np.asarray([t == JOINT_REVOLUTE for t in model.joint_type], dtype=np.float64),
-        dtype=dtype,
-        device=device,
-    )
+    mask = constant(np.asarray(ancestor_mask, dtype=np.float64), dtype, device)
+    rev = constant([float(t == JOINT_REVOLUTE) for t in model.joint_type], dtype, device)
     rel = points[..., :, None, :] - anchors[..., None, :, :]  # (..., m, nj, 3)
     jv_rev = torch.linalg.cross(axes[..., None, :, :].expand_as(rel), rel)
     jv_joint = rev[:, None] * jv_rev + (1.0 - rev)[:, None] * axes[..., None, :, :]
@@ -121,3 +123,48 @@ def body_com_positions(model: RobotModel, kin: BodyKin):
     """(..., nb, 3) world com of every body."""
     return kin.p + (kin.R * model.body_com[:, None, :]).sum(-1)
 
+
+def point_jacobian(model: RobotModel, kin: BodyKin, body_idx: int, p_world):
+    """(..., 6, nv) world-aligned Jacobian of the point ``p_world`` (..., 3)
+    rigidly attached to body ``body_idx``."""
+    anc = model.ancestor_mask()[body_idx : body_idx + 1]  # (1, nj)
+    return stacked_point_jacobians(model, kin, p_world[..., None, :], anc)[..., 0, :, :]
+
+
+def frame_jacobian(model: RobotModel, q, frame_id: int):
+    """(..., 6, nv) LOCAL_WORLD_ALIGNED Jacobian of a named frame."""
+    kin = forward_kinematics(model, q)
+    _, p = frame_transform(model, kin, frame_id)
+    return point_jacobian(model, kin, model.frame_body[frame_id], p)
+
+
+def frame_jacobian_dot(model: RobotModel, q, v, frame_id: int):
+    """Exact time derivative of :func:`frame_jacobian` along (q, v); with
+    leading batch dimensions each sample's tangent is its own v."""
+    return torch.func.jvp(lambda qq: frame_jacobian(model, qq, frame_id), (q,), (v,))[1]
+
+
+def frame_velocity(model: RobotModel, q, v, frame_id: int):
+    """World linear+angular velocity (..., 6) of a frame."""
+    return mv(frame_jacobian(model, q, frame_id), v)
+
+
+def com_position(model: RobotModel, kin: BodyKin):
+    """Whole-robot com (..., 3) in the world frame."""
+    coms = body_com_positions(model, kin)
+    return (model.body_mass[:, None] * coms).sum(-2) / model.total_mass
+
+
+def frame_jacobians(model: RobotModel, q, frame_ids):
+    """(..., m, 6, nv): :func:`frame_jacobian` of several frames from one
+    forward-kinematics pass (each frame's Jacobian is the same elementwise
+    computation as its own call's)."""
+    kin = forward_kinematics(model, q)
+    points = torch.stack([frame_transform(model, kin, f)[1] for f in frame_ids], dim=-2)
+    anc = model.ancestor_mask()[[model.frame_body[f] for f in frame_ids]]
+    return stacked_point_jacobians(model, kin, points, anc)
+
+
+def frame_jacobians_and_dot(model: RobotModel, q, v, frame_ids):
+    """(J, Jdot) of :func:`frame_jacobians`, both from one forward-mode pass."""
+    return torch.func.jvp(lambda qq: frame_jacobians(model, qq, frame_ids), (q,), (v,))

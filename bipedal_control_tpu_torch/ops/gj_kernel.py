@@ -2,13 +2,14 @@
 kernel (``csrc/gauss_jordan.cu``).
 
 Replaces the TPU kernel ``_gj_kernel`` of ``bipedal_control_tpu/ops/pallas_gj.py``
-(its ``pallas_call`` in ``gauss_jordan_solve_pallas``).  No production path
-calls it: the Riccati kernel (``csrc/riccati.cu``) runs its own,
-register-resident elimination of its stage KKT, two pivots per barrier.  The plain PyTorch version is
-``ops/linalg.py::gauss_jordan_solve``; :func:`gauss_jordan_solve_pallas`
-runs it for CPU tensors only, and for CUDA tensors launches the kernel or
-raises.  The TPU kernel's padding of each system to (8, 128) tiles has no
-counterpart.
+(its ``pallas_call`` in ``gauss_jordan_solve_pallas``).  Its caller is the
+device WBC's QP (``wbc/qp.py::solve_qp``), which inverts its quasi-definite
+KKT here once per solve, for a whole batch of QPs in one launch.  The
+plain PyTorch version is ``ops/linalg.py::gauss_jordan_solve``;
+:func:`gauss_jordan_solve_pallas` runs it for CPU tensors only, and for CUDA
+tensors launches the kernel or raises.  The kernel runs one thread block
+per (system, tile of 32 right-hand-side columns); the TPU kernel's padding
+of each system to (8, 128) tiles has no counterpart.
 """
 from __future__ import annotations
 
@@ -25,15 +26,21 @@ def build():
     for fn in (built.lib.gauss_jordan_f32, built.lib.gauss_jordan_f64):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    built.lib.gauss_jordan_col_tile.argtypes = [ctypes.c_int]
+    built.lib.gauss_jordan_col_tile.restype = ctypes.c_int
     return built
 
 
 def gauss_jordan_solve_pallas(A, B):
     """Solve A X = B for quasi-definite A without pivoting.
-    A: (batch, n, n); B: (batch, n, k) -> X: (batch, n, k)."""
+    A: (..., n, n); B: (..., n, k) -> X: (..., n, k); on the card every
+    system of the leading dimensions goes into one launch."""
     if A.device.type == "cpu":
         return gauss_jordan_solve(A, B)
-    return gauss_jordan_solve_cuda(A, B)
+    lead = torch.broadcast_shapes(A.shape[:-2], B.shape[:-2])
+    n, k = A.shape[-1], B.shape[-1]
+    flat = lambda t, w: t.expand(lead + (n, w)).reshape(-1, n, w).contiguous()
+    return gauss_jordan_solve_cuda(flat(A, n), flat(B, k)).reshape(lead + (n, k))
 
 
 def gauss_jordan_solve_cuda(A, B):
@@ -54,7 +61,9 @@ def gauss_jordan_solve_cuda(A, B):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(A.data_ptr(), B.data_ptr(), X.data_ptr(), batch, n, k, stream)
     check_launch(status, "Gauss-Jordan kernel")
-    gauss_jordan_solve_pallas.launches += 1
+    # a launch recorded into a CUDA graph runs only at the graph's replays, which call no wrapper
+    if not torch.cuda.is_current_stream_capturing():
+        gauss_jordan_solve_pallas.launches += 1
     return X
 
 

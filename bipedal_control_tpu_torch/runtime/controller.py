@@ -6,18 +6,29 @@ estimate -> observation -> (async) MPC replan -> policy interpolation ->
 WBC torque QP -> hybrid joint command (posDes, velDes, kp, kd, tau_ff).
 
 The MPC runs on the interface's device (the card unless the interface was
-built with ``device="cpu"``); everything else of the tick runs on the host:
-the observation and the WBC's model quantities in the C++ of
-native/host_model.cc, the WBC's ADMM in native/host_qp.cc, the task rows in
-numpy (``native=False`` runs the numpy twins of both C++ libraries instead).
+built with ``device="cpu"``); the observation runs on the host, in the C++
+of native/host_model.cc (``native=False``: its numpy twin).  The WBC and the
+estimator have two backends each:
+
+- ``wbc_backend="host"`` (default): the WBC's model quantities in
+  native/host_model.cc, its ADMM in native/host_qp.cc, the task rows in
+  numpy: nothing of the WBC runs on the card.  ``"device"``: the WBC of
+  wbc/weighted_wbc.py on the interface's device, its KKT inverted by K5;
+  on the card each tick replays it from a CUDA graph captured at the first
+  tick (one copy of its inputs to the card and one of the decision back).
+- ``estimator="cheater"`` (default): the caller hands ``update`` the
+  measured rbdState.  ``"kalman"``: the contact Kalman filter of
+  estim/estimator.py on the interface's device (a CUDA graph on the card),
+  fed raw sensors through ``starting_from_sensors``/``update_from_sensors``.
 
 - Synchronous mode (``mpc_async=False``, dummy-loop style): the tick
   replans at mpcDesiredFrequency and evaluates the newest policy on the
   device; the policy point and the planned contact flags reach the host in
-  one device-to-host copy, the tick's only synchronisation outside a replan.
+  one device-to-host copy, with the host backends the tick's only
+  synchronisation outside a replan.
 - Asynchronous mode (``mpc_async=True``): the MPC replans on a worker
   thread (runtime/async_mpc.py) and the tick evaluates its newest snapshot
-  in numpy: the tick touches no CUDA tensor.
+  in numpy: with the host backends the tick touches no CUDA tensor.
 
 tau_ff is the WBC's torque as its QP returns it, as in the JAX package.
 The QP holds |tau| <= limit (torqueLimitsTask) as a hard constraint, but the
@@ -25,10 +36,6 @@ ADMM that stands in for qpOASES runs a fixed number of iterations and can
 end outside the box by up to its primal residual: ``report()`` counts the
 ticks whose torque left the limits and the largest excess, and
 ``wbc_primal_residual`` is the last tick's residual.
-
-Only the default host path is ported: the device WBC (``wbc_backend=
-"device"``) and the Kalman estimator (``estimator="kalman"``, with its
-sensor entry points) raise NotImplementedError until ROADMAP queue 1 item 6b.
 """
 from __future__ import annotations
 
@@ -39,13 +46,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..estim.estimator import KalmanStateEstimator
 from ..interface import RobotInterface
 from ..model.host_model import centroidal_state_from_rbd_np, make_host_model
 from ..model.native_model import NativeHostModel
 from ..solver.sqp import SqpSolution
+from ..utils.cuda_graph import HostCall
 from ..utils.timing import RepeatedTimer
 from ..wbc.host_wbc import HostWbc
 from ..wbc.tasks import WbcTaskConfig
+from ..wbc.weighted_wbc import wbc_update
 from .async_mpc import AsyncMpcRunner, contact_flags_at_np, evaluate_policy_np
 from .mpc_runner import MpcRunner
 from .mrt import evaluate_policy
@@ -76,8 +86,9 @@ class ControllerConfig:
     # replan happens synchronously inside the tick (dummy-loop style).
     mpc_async: bool = False
     # State-estimator selection: "cheater" consumes ground-truth rbdState
-    # (FromTopicStateEstimate semantics).  "kalman" (the contact LKF) is not
-    # ported yet (ROADMAP queue 1 item 6b) and raises.
+    # (FromTopicStateEstimate semantics); "kalman" runs the contact LKF on
+    # IMU + joint sensors via update_from_sensors (the estimator the
+    # reference declares but never implemented — LinearKalmanFilter.h:27-67).
     estimator: str = "cheater"
     # Optional in-process WBC weight override (dynamic_reconfigure analogue,
     # BipedalController.cpp:407-478).  Persistent tuning belongs in the
@@ -85,8 +96,8 @@ class ControllerConfig:
     weight_base_accel: float | None = None
     # Torque-path backend: "host" closes the WBC QP on the CPU (the
     # reference's architecture — qpOASES on the host inside the 2.5 ms tick,
-    # WeightedWbc.cpp:53-81).  "device" (the WBC on the card) is not ported
-    # yet (ROADMAP queue 1 item 6b) and raises.
+    # WeightedWbc.cpp:53-81); "device" runs the WBC of wbc/weighted_wbc.py
+    # on the interface's device (K5 inverts its KKT on the card).
     wbc_backend: str = "host"
     # First-order low-pass on the MEASURED joint velocities (Hz; 0 = off).
     # Contact impacts ring single-tick velocity spikes through light links,
@@ -110,10 +121,46 @@ def wbc_config_from_task(task) -> WbcTaskConfig:
     )
 
 
+class DeviceWbc:
+    """The WBC of wbc/weighted_wbc.py on the interface's device, as the
+    controller's tick calls it: numpy in, (decision, primal residual) out,
+    both float64 on the host.  On the card the tick's WBC replays a CUDA
+    graph captured at its first call (the counterpart of the reference's
+    ``jax.jit``); :meth:`replace_config` drops the graph, so the next tick
+    runs op by op with the new configuration and captures it anew."""
+
+    def __init__(self, iface: RobotInterface, cfg: WbcTaskConfig):
+        self.model, self.info, self.cfg = iface.model, iface.info, cfg
+        self.dtype, self.device = iface.dtype, iface.device
+        info = iface.info
+        # x_star, u_fb, rbd, flags of one tick
+        self._splits = (info.state_dim, info.input_dim, 2 * info.generalized_dim, 4)
+        self._call = HostCall(self._step, sum(self._splits), self.dtype, self.device)
+
+    @property
+    def graphed(self) -> bool:
+        return self._call.graphed
+
+    def replace_config(self, cfg: WbcTaskConfig) -> None:
+        self.cfg = cfg
+        self._call = HostCall(self._step, sum(self._splits), self.dtype, self.device)
+
+    def _step(self, packed):
+        """[decision, primal residual] (ndec + 1,) of one WBC from its
+        packed inputs: a function of tensors only (what the graph captures)."""
+        x_star, u_fb, rbd, flags = torch.split(packed, self._splits)
+        res = wbc_update(self.model, self.info, self.cfg, x_star, u_fb, rbd, flags)
+        return torch.cat([res.decision, res.qp.primal_residual[None]])
+
+    def update(self, x_star, u_fb, rbd, flags) -> tuple[np.ndarray, float]:
+        out = self._call(x_star, u_fb, rbd, flags)
+        return out[:-1], float(out[-1])
+
+
 class BipedalController:
-    """``native`` selects the host backends of the observation and the WBC:
-    the C++ of native/ (True; raises if it cannot be built) or its numpy
-    twins (False).  ``backends`` records what runs."""
+    """``native`` selects the host backends of the observation and the host
+    WBC: the C++ of native/ (True; raises if it cannot be built) or its
+    numpy twins (False).  ``backends`` records what runs."""
 
     def __init__(
         self,
@@ -124,17 +171,9 @@ class BipedalController:
     ):
         self.iface = iface
         self.cfg = cfg or ControllerConfig()
-        if self.cfg.wbc_backend == "device":
-            raise NotImplementedError(
-                "wbc_backend='device': the port has no device WBC yet (ROADMAP queue 1 item 6b)"
-            )
-        if self.cfg.wbc_backend != "host":
+        if self.cfg.wbc_backend not in ("host", "device"):
             raise ValueError(f"unknown wbc_backend {self.cfg.wbc_backend!r}")
-        if self.cfg.estimator == "kalman":
-            raise NotImplementedError(
-                "estimator='kalman': the port has no Kalman estimator yet (ROADMAP queue 1 item 6b)"
-            )
-        if self.cfg.estimator != "cheater":
+        if self.cfg.estimator not in ("cheater", "kalman"):
             raise ValueError(f"unknown estimator {self.cfg.estimator!r}")
         # an externally built manager carries deployment state the default
         # lacks (e.g. a terrain_fn sampled from the world)
@@ -165,13 +204,25 @@ class BipedalController:
         self.last_policy: tuple[np.ndarray, np.ndarray] | None = None
         self.async_mpc = AsyncMpcRunner(self.mpc, self.cfg.mpc_frequency) if self.cfg.mpc_async else None
 
-        # the observation and the WBC run on the host: the model's tensors
-        # come to the host once, here
+        # the observation (and the host WBC) run on the host: the model's
+        # tensors come to the host once, here
         self._hm = make_host_model(iface.model, iface.info)
-        self.host_wbc = HostWbc(iface.model, iface.info, self.wbc_cfg, hm=self._hm, native=native)
-        self._nm: NativeHostModel | None = self.host_wbc.native_model
-        self.backends = {"host_model": self.host_wbc.backend, "qp": self.host_wbc.backend,
-                         "mpc": str(iface.device) + (" (CUDA graphs)" if self.mpc.graphed else "")}
+        graphs = lambda graphed: str(iface.device) + (" (CUDA graphs)" if graphed else "")
+        self.host_wbc = self.device_wbc = None
+        if self.cfg.wbc_backend == "host":
+            self.host_wbc = HostWbc(iface.model, iface.info, self.wbc_cfg, hm=self._hm, native=native)
+            self._nm: NativeHostModel | None = self.host_wbc.native_model
+            wbc_backend = self.host_wbc.backend
+        else:
+            self.device_wbc = DeviceWbc(iface, self.wbc_cfg)
+            self._nm = NativeHostModel(self._hm) if native else None
+            wbc_backend = graphs(self.device_wbc.graphed)
+        host = "native" if native else "numpy"
+        self.backends = {"host_model": host, "qp": wbc_backend, "mpc": graphs(self.mpc.graphed)}
+        self.estimator = None
+        if self.cfg.estimator == "kalman":
+            self.estimator = KalmanStateEstimator(iface.model, iface.info)
+            self.backends["estimator"] = graphs(iface.device.type == "cuda")
         # synchronous mode: the measured state crosses to the card through a
         # pinned buffer without a synchronisation
         self._x_pinned = (
@@ -185,7 +236,8 @@ class BipedalController:
         async mode the initial solve also primes the worker, which then
         replans in the background (cpp:147-157 initial-policy sync loop)."""
         self.last_yaw = float(rbd_measured[0])
-        self.host_wbc.reset()
+        if self.host_wbc is not None:
+            self.host_wbc.reset()
         x_obs = self._observation(rbd_measured)
         if self.async_mpc is not None:
             self.async_mpc.prime(t, x_obs)
@@ -200,6 +252,49 @@ class BipedalController:
         """Join the MPC worker (controller unload)."""
         if self.async_mpc is not None:
             self.async_mpc.stop()
+
+    def _planned_flags(self, t: float) -> np.ndarray:
+        """Planned contact flags at t from the latest policy's gait table;
+        all-stance before the first policy (the reference hardcodes STANCE,
+        BipedalController.cpp:372-377)."""
+        if self.async_mpc is not None:
+            snap = self.async_mpc.poll_policy()
+            if snap is not None:
+                return contact_flags_at_np(snap, t)
+        elif self.mpc.last_frozen is not None:
+            gait = self.mpc.last_frozen.gait
+            t_dev = torch.full((1,), float(t), dtype=gait.event_times.dtype, device=gait.event_times.device)
+            return gait.contact_flags_at(t_dev)[0].to(device="cpu", dtype=torch.float64).numpy()
+        return np.ones(4)
+
+    def _require_kalman(self) -> None:
+        if self.estimator is None:
+            raise RuntimeError("the sensor entry points need ControllerConfig(estimator='kalman')")
+
+    def starting_from_sensors(
+        self, t: float, imu_quat_wxyz, gyro_local, accel_local, joint_pos, joint_vel, base_pos_guess,
+    ) -> None:
+        """Kalman-estimator bring-up: seed the LKF at the known initial pose
+        (the initial-pose controller hands over from a known configuration),
+        then run the normal blocking initial solve."""
+        self._require_kalman()
+        self.estimator.reset(imu_quat_wxyz, joint_pos, base_pos_guess)
+        rbd = self.estimator.update(imu_quat_wxyz, gyro_local, accel_local, joint_pos, joint_vel, np.ones(4))
+        self.starting(t, rbd)
+
+    def update_from_sensors(
+        self, t: float, imu_quat_wxyz, gyro_local, accel_local, joint_pos, joint_vel, contact_flags_meas=None,
+    ) -> JointCommand:
+        """One control tick from raw sensors: LKF estimate -> cascade.
+        contact_flags_meas (a contact-sensor readout, when the platform has
+        one) overrides the planned gait flags fed to the filter."""
+        self._require_kalman()
+        flags = (
+            np.asarray(contact_flags_meas, dtype=float) if contact_flags_meas is not None
+            else self._planned_flags(t)
+        )
+        rbd = self.estimator.update(imu_quat_wxyz, gyro_local, accel_local, joint_pos, joint_vel, flags)
+        return self.update(t, rbd)
 
     # -- runtime reconfigure (dynamic_reconfigure analogue,
     #    BipedalController.cpp:407-478: WBC weights + per-motor PD gains
@@ -218,8 +313,12 @@ class BipedalController:
                 f"unknown WBC weight {name!r} (try {sorted(self.WBC_WEIGHT_FIELDS)})"
             )
         self.wbc_cfg = dataclasses.replace(self.wbc_cfg, **{field: float(value)})
-        # constant rows rebuilt; ADMM warm-start state survives
-        self.host_wbc.replace_config(self.wbc_cfg)
+        if self.host_wbc is not None:
+            # constant rows rebuilt; ADMM warm-start state survives
+            self.host_wbc.replace_config(self.wbc_cfg)
+        else:
+            # the next tick runs op by op with the new weight and recaptures
+            self.device_wbc.replace_config(self.wbc_cfg)
 
     def set_joint_gains(self, pattern: str, kp: float, kd: float) -> int:
         """Set PD gains on every joint whose name contains ``pattern``
@@ -359,11 +458,14 @@ class BipedalController:
 
         t_pre_wbc = time.perf_counter()
         with self.wbc_timer:
-            # host torque path: C++ (or numpy) kinematics + ADMM, nothing on
-            # the card (the reference's qpOASES-on-CPU split)
-            wbc = self.host_wbc.update(x_star, u_fb, rbd, np.asarray(flags, dtype=float))
-        decision_host = wbc.decision
-        self.wbc_primal_residual = wbc.primal_residual
+            flags = np.asarray(flags, dtype=float)
+            if self.host_wbc is not None:
+                # host torque path: C++ (or numpy) kinematics + ADMM, nothing
+                # on the card (the reference's qpOASES-on-CPU split)
+                wbc = self.host_wbc.update(x_star, u_fb, rbd, flags)
+                decision_host, self.wbc_primal_residual = wbc.decision, wbc.primal_residual
+            else:
+                decision_host, self.wbc_primal_residual = self.device_wbc.update(x_star, u_fb, rbd, flags)
         t_post_wbc = time.perf_counter()
         # qpOASES-failure fallback: reuse last solution (WeightedWbc.cpp:77-81).
         # Only genuine failures (non-finite) reject; finite-iteration ADMM

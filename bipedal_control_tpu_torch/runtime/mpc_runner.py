@@ -30,6 +30,7 @@ from ..ops.merit_kernel import make_merit_sums
 from ..reference.manager import ReferenceManager
 from ..reference.target import TargetTable
 from ..solver.sqp import SqpSolution, build_refs, initial_trajectory, sqp_solve, warm_start_trajectories
+from ..utils.cuda_graph import GraphedCall
 from ..utils.precision import set_full_f32_matmul
 from ..utils.timing import RepeatedTimer
 
@@ -90,46 +91,6 @@ def make_capture_hook(cap, nj: int):
     return dq_fn, decay, ws
 
 
-class _GraphedReplan:
-    """One kind of replan (cold or warm start) in a CUDA graph.  The first
-    call runs the replan op by op on a side stream (it loads the kernels'
-    libraries and settles the allocator) and returns its result, then
-    captures the graph; a later call copies its input tensors into the
-    graph's static buffers, replays the graph, and returns copies of the
-    outputs (the next replay overwrites the graph's own).
-
-    The kernels' wrappers count the first call's launches only: a replay
-    runs the captured kernels without calling a wrapper, so what a replayed
-    replan ran on the card is read from a profiler trace (chip_smoke.py
-    phases 11 and 12)."""
-
-    def __init__(self, fn):
-        self._fn = fn
-        self._graph = None
-
-    def __call__(self, inputs):
-        if self._graph is None:
-            return self._run_and_capture(inputs)
-        for static, t in zip(self._static, inputs):
-            static.copy_(t)
-        self._graph.replay()
-        return type(self._out)(*(o.clone() for o in self._out))
-
-    def _run_and_capture(self, inputs):
-        dev = inputs[0].device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            sol = self._fn(*inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self._static = [t.clone() for t in inputs]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._out = self._fn(*self._static)
-        self._graph = graph
-        return sol
-
-
 class MpcRunner:
     """`solver` selects the replan backend: "sqp" (the SqpMpc analogue).
     "ilqr" (AL-iLQR, solver/ddp.py) is not ported yet (ROADMAP queue 1
@@ -170,7 +131,7 @@ class MpcRunner:
         self._capture_dq, self._decay, self._wshift = make_capture_hook(getattr(iface.task, "capture", None), info.nj)
         self._num_nodes = settings.num_intervals + 1
         kernels = (settings.linearize, settings.riccati, settings.merit) == ("pallas",) * 3
-        # "cold" / "warm" -> _GraphedReplan, made at first use; None: every replan runs op by op
+        # "cold" / "warm" -> GraphedCall of _replan, made at first use; None: every replan runs op by op
         self._graphs = {} if iface.device.type == "cuda" and kernels else None
 
     @property
@@ -207,7 +168,7 @@ class MpcRunner:
             if self._graphs is None:
                 sol = self._replan(*inputs)
             else:
-                sol = self._graphs.setdefault("warm" if warm else "cold", _GraphedReplan(self._replan))(inputs)
+                sol = self._graphs.setdefault("warm" if warm else "cold", GraphedCall(self._replan))(inputs)
         self.last_solution = sol
         return sol
 

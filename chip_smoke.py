@@ -76,12 +76,48 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      configuration on the same replayed measurements
      (pos_des, vel_des, tau_ff 1e-5 relative to max(1, max|ref|), planned
      contact flags equal, K1, K2+K3 and K4 run once per production replan);
-  every tick of phase 12 is held to finite commands and |tau_ff| within the
-  WBC's torque limits plus the tick's QP primal residual plus 1e-6 (the
-  ADMM runs a fixed number of iterations, as in the JAX package);
+  every tick of phases 12 and 13 is held to finite commands and |tau_ff|
+  within the WBC's torque limits plus the tick's QP primal residual plus
+  1e-6 (the ADMM runs a fixed number of iterations, as in the JAX package);
+ 13. the device WBC and the Kalman estimator on G1:
+     (a) K5 on the device WBC's KKT systems (128 x 128 | eye(128)) at B = 1
+     and B = 256, float64 (1e-10 against its plain version) and float32
+     (its residual max|A X - I| at most 4 x the plain version's + 1e-6),
+     timed beside its plain version, torch.linalg.solve and torch.linalg.inv
+     of the same systems, with its bound, resident blocks and ptxas report;
+     (b) wbc_update_batch at B = 256 on the card, float32, timed, one K5
+     launch for the batch, its torque's distance from float64 printed
+     beside the plain version's, and float64 against the plain version on
+     the CPU at B = 8 (1e-8);
+     (c) BipedalController(wbc_backend="device", estimator="kalman"), float32,
+     trot from 0.1 s: starting_from_sensors, then 400 update_from_sensors
+     ticks (50 replans) on the replay plant, whose rbd states give the
+     sensors (IMU quaternion, gyro, accelerometer from the base velocity's
+     difference over the tick, joint positions and velocities); the tick,
+     the WBC and the Kalman step timed; the estimate held to the replay:
+     base position 5e-3 m (the JAX package's standing bar), base velocity
+     within 0.25 m/s of the replay's odometry gap on each tick (the replay
+     is no physical plant: its stance feet move, so the base velocity that
+     leg odometry measures differs from the replay's by up to ~3 m/s);
+     then the estimator alone at G1's stand, started 5 cm off, 1200 steps
+     (the JAX test's bars: base-to-foot and height 5e-3 m, velocity
+     1e-2 m/s); then 4 ticks under torch.profiler, in each of which
+     the device must run K5 once (the WBC replays its CUDA graph, which no
+     wrapper counts); the float32 torque of every tick whose float64 QP is
+     solved against the float64 WBC on the same inputs (5e-2 relative to
+     max(1, max|tau|); float32 keeps a few digits through the KKT's 2e-6
+     torque pivots), and the same inputs in float32 batches through K5 and
+     through its plain version on the card (through K5 at most 4 x through
+     the plain version + 1e-3) and through the plain versions on the CPU;
+     then 20 ticks in
+     float64, production on the card against the all-plain configuration
+     on the CPU with the same sensors (pos_des, vel_des, tau_ff and the
+     filter's state 1e-5 relative to max(1, max|ref|), planned flags equal);
 then a JSON line of G1's solve and loop results, a JSON line of the
-controller's, a JSON line of per-kernel results (with each model kernel's
-G1 figures under "g1") and, last, the device JSON line.
+controller's, a JSON line of phase 13's, a JSON line of per-kernel results
+(with each model kernel's G1 figures under "g1", and K5's at the device
+WBC's shapes, with its launches per controller tick) and, last, the device
+JSON line.
 With --profile, phases 1-2 are followed by torch.profiler over warm B=256
 float32 solves of the production and "structured" configurations (device
 busy share, device time by kernel, the host's synchronising runtime calls).
@@ -106,14 +142,22 @@ import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
+from bipedal_control_tpu_torch.estim.estimator import KalmanStateEstimator
 from bipedal_control_tpu_torch.interface import make_interface
-from bipedal_control_tpu_torch.model.centroidal import centroidal_flow_map, make_info, rbd_state_from_centroidal
+from bipedal_control_tpu_torch.model.centroidal import (
+    centroidal_flow_map,
+    contact_positions,
+    make_info,
+    rbd_state_from_centroidal,
+)
 from bipedal_control_tpu_torch.model.host_dynamics import generalized_velocity_from_state_input_np
-from bipedal_control_tpu_torch.model.host_model import euler_rate_map_zyx_np, make_host_model
+from bipedal_control_tpu_torch.model.host_model import euler_rate_map_zyx_np, make_host_model, rotmat_from_zyx_np
+from bipedal_control_tpu_torch.model.kinematics import frame_jacobians
 from bipedal_control_tpu_torch.model.robot_model import from_description
 from bipedal_control_tpu_torch.model.urdf import JOINT_REVOLUTE, RobotDescription, load_urdf
 from bipedal_control_tpu_torch.ocp.linearize import linearize_node_structured
@@ -124,13 +168,21 @@ from bipedal_control_tpu_torch.ops.linalg import gauss_jordan_solve
 from bipedal_control_tpu_torch.ops.static_model import circuit_static, make_static_model, tables_np
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
 from bipedal_control_tpu_torch.robots import get_assets
-from bipedal_control_tpu_torch.runtime.controller import BipedalController, ControllerConfig
+from bipedal_control_tpu_torch.runtime.controller import (
+    BipedalController,
+    ControllerConfig,
+    DeviceWbc,
+    wbc_config_from_task,
+)
 from bipedal_control_tpu_torch.runtime.mpc_runner import MpcRunner
 from bipedal_control_tpu_torch.runtime.rt_runner import RtControllerRunner
 from bipedal_control_tpu_torch.sim.dummy_loop import run_dummy_loop
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
 from bipedal_control_tpu_torch.solver.sqp import build_refs, initial_trajectory, sqp_solve, warm_start_trajectories
 from bipedal_control_tpu_torch.utils.precision import set_full_f32_matmul
+from bipedal_control_tpu_torch.wbc import qp as wbc_qp_module
+from bipedal_control_tpu_torch.wbc.qp import kkt_matrix
+from bipedal_control_tpu_torch.wbc.weighted_wbc import wbc_qp, wbc_update_batch
 
 H1_LEG_JOINTS = [
     f"{side}_{j}_joint"
@@ -143,6 +195,7 @@ G1_SHAPED_URDF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests
 N_NODES, DT = 67, 0.015
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_F64_OPS_PER_S = 67e12  # H100 SXM float64 on the tensor cores (34e12 outside them)
 CONFIGS = {  # (linearize, riccati, merit)
     "production": ("pallas", "pallas", "pallas"),
     "structured": ("structured", "pallas", "pallas"),
@@ -311,11 +364,11 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound(bytes_moved: float, ops: float) -> dict:
+def bound(bytes_moved: float, ops: float, peak_ops: float = PEAK_F32_OPS_PER_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
+    operations over the dtype's peak rate, whichever is larger."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_moved, "ops": ops}
 
@@ -399,8 +452,13 @@ def k23_ops(B: int, N: int, nx: int, nu: int, ne: int) -> float:
 
 
 def k5_ops(batch: int, n: int, k: int) -> float:
+    """The pivot-free Gauss-Jordan solve A X = B: per pivot i, one division
+    for each column right of it in the pivot row and one multiply-add (two
+    operations) for each such column in the n - 1 other rows.  The
+    function's work: K5's repeated elimination of A per column tile is not
+    counted."""
     W = n + k
-    return float(batch * sum(n * (W - 1 - i) * 4 for i in range(n)))
+    return float(batch * sum((W - 1 - i) * (1 + 2 * (n - 1)) for i in range(n)))
 
 
 # ------------------------------------------------------------------ phases
@@ -1431,11 +1489,454 @@ def phase_controller(device, iface) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ device WBC and Kalman estimator
+WBC_MODES = ((1.0, 1.0, 1.0, 1.0), (1.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 1.0))  # stance, left, right support
+
+
+def wbc_inputs(iface, B: int, seed: int):
+    """(x_des, u_des, rbd, flags) numpy, (B, ...): the MPC's desired point
+    near G1's stand, a measurement a little off it, the contact modes
+    cycling stance / left / right support."""
+    rng = np.random.default_rng(seed)
+    x0, nj, mass = np.asarray(iface.initial_state), iface.info.nj, iface.info.robot_mass
+    x = x0 + np.concatenate([rng.normal(scale=0.05, size=(B, 6)), rng.normal(scale=0.01, size=(B, 6)),
+                             rng.normal(scale=0.05, size=(B, nj))], axis=1)
+    u = np.concatenate([np.tile([0.0, 0.0, mass * 9.81 / 4], 4) + rng.normal(scale=5.0, size=(B, 12)),
+                        rng.normal(scale=0.3, size=(B, nj))], axis=1)
+    rbd = standing_rbd(iface) + np.concatenate([rng.normal(scale=0.02, size=(B, 6)),
+                                                rng.normal(scale=0.03, size=(B, nj)),
+                                                rng.normal(scale=0.1, size=(B, 6 + nj))], axis=1)
+    flags = np.asarray([WBC_MODES[b % 3] for b in range(B)])
+    return x, u, rbd, flags
+
+
+def as_tensors(arrays, iface):
+    return [torch.as_tensor(a, dtype=iface.dtype, device=iface.device) for a in arrays]
+
+
+def wbc_kkt(iface, inputs):
+    """The WBC's KKT systems at these inputs and the identity right-hand
+    sides K5 inverts them against: (B, 128, 128) each, contiguous."""
+    H, _, A, l, u = wbc_qp(iface.model, iface.info, wbc_config_from_task(iface.task), *as_tensors(inputs, iface))
+    kkt = kkt_matrix(H, A, l, u)[1].contiguous()
+    return kkt, torch.eye(kkt.shape[-1], dtype=kkt.dtype, device=kkt.device).expand(kkt.shape).contiguous()
+
+
+def phase_wbc_kernel(device, lib, iface) -> dict:
+    """Phase 13 (a): K5 on the device WBC's KKT systems (n = 128: 42
+    decision variables and 86 rows at G1's widths, against eye(128)) at
+    B = 1 (a controller tick) and B = 256 (wbc_update_batch), float64 and
+    float32, against its plain version, with the library's inverse of the
+    same systems (torch.linalg.solve against the identity, and
+    torch.linalg.inv) timed beside it.  float64 bar 1e-10 relative to
+    max(1, max|ref|).  In float32 the KKT's torque pivots, sigma +
+    torque_reg = 2e-6 beside entries of order weight_swing_leg^2 = 1e4,
+    leave a few digits of the inverse, so the kernel is held to a backward
+    error, as the gpu test holds it: its residual max|A X - I| (in float64)
+    at most 4 times the plain version's plus 1e-6."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        it = iface.to(dtype=dtype)
+        res = {}
+        for B in (1, 256):
+            A, I = wbc_kkt(it, wbc_inputs(it, B, 41))
+            got = gj_kernel.gauss_jordan_solve_cuda(A, I)
+            ref = gauss_jordan_solve(A, I)
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            residual = lambda X: float((A.double() @ X.double() - I.double()).abs().max())
+            timer = graph_time_ms if B == 1 else cuda_time_ms
+            r = {"rel_err": err, "max_abs_err": float((got.double() - ref.double()).abs().max()),
+                 "max_abs_inverse": float(ref.abs().max()), "residual": residual(got),
+                 "plain_residual": residual(ref),
+                 "ms": timer(lambda: gj_kernel.gauss_jordan_solve_cuda(A, I), 50 if B == 1 else 20),
+                 "plain_ms": cuda_time_ms(lambda: gauss_jordan_solve(A, I), 3),
+                 "library_ms": cuda_time_ms(lambda: torch.linalg.solve(A, I), 10),
+                 "library_inv_ms": cuda_time_ms(lambda: torch.linalg.inv(A), 10)}
+            n = A.shape[-1]
+            peak = PEAK_F64_OPS_PER_S if dtype == torch.float64 else PEAK_F32_OPS_PER_S
+            r.update(bound(A.element_size() * B * 3 * n * n, k5_ops(B, n, n), peak))
+            print(f"[13 wbc-k5] {str(dtype)[6:]} B={B} ({n} x {n} | {n}), {B * ((n + 31) // 32)} blocks: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, torch.linalg.solve {r['library_ms']:.4f} ms, "
+                  f"torch.linalg.inv {r['library_inv_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
+                  f"kernel vs plain max rel err {err:.2e} (max |inverse| {r['max_abs_inverse']:.3e}); residual "
+                  f"max|A X - I| kernel {r['residual']:.3e}, plain {r['plain_residual']:.3e}")
+            require(bool(torch.isfinite(got).all()), f"K5 at the WBC's KKT: non-finite inverse in {dtype} at B={B}")
+            if dtype == torch.float64:
+                require(err <= 1e-10, f"K5 at the WBC's KKT disagrees in float64 at B={B}: {err:.3e}")
+            else:
+                require(r["residual"] <= 4.0 * r["plain_residual"] + 1e-6,
+                        f"K5 at the WBC's KKT, float32 B={B}: residual {r['residual']:.3e} over 4 x the plain "
+                        f"version's {r['plain_residual']:.3e} + 1e-6")
+            res[f"b{B}"] = r
+        bps, warps = resident_per_sm(lib.lib, "gauss_jordan", A.element_size(), 128, 128)
+        res.update(blocks_per_sm=bps, warps_per_sm=warps)
+        out[str(dtype)[6:]] = res
+    out["registers"] = ptxas_summary(lib.ptxas_report)
+    print(f"[13 wbc-k5] resident per SM at (128 | 128): float64 {out['float64']['blocks_per_sm']} blocks, float32 "
+          f"{out['float32']['blocks_per_sm']} blocks of 8 warps; ptxas {out['registers']}")
+    return out
+
+
+def phase_wbc_batch(device, iface) -> dict:
+    """Phase 13 (b): wbc_update_batch at B = 256 on the card (one K5 launch
+    for the batch, counted by its wrapper), float32, timed on CUDA events
+    (op by op: it is the sweeps' entry, not the tick's); float64 on the card
+    against the plain version on the CPU at B = 8 (decision 1e-8 relative
+    to max(1, max|ref|), the CPU parity test's bar, and ``solved`` equal).
+    The float32 torque's distance from float64 is printed, the kernel's on
+    the card beside the plain version's on the CPU, without a bar: on these
+    random inputs the ADMM's 120 iterations leave most QPs unconverged, and
+    float32 rounding moves an unconverged iterate (phase 13 (a) holds the
+    float32 inverse, phase 13 (c) the float32 torque on the controller's own
+    inputs)."""
+    B = 256
+    inputs = wbc_inputs(iface, B, 43)
+    cfg = wbc_config_from_task(iface.task)
+    it32 = iface.to(dtype=torch.float32)
+    run = lambda it, arrays: wbc_update_batch(it.model, it.info, cfg, *as_tensors(arrays, it))
+    run(it32, inputs)
+    reset_launches()
+    res32 = run(it32, inputs)
+    launches = read_launches()["gauss_jordan"]
+    require(launches == 1, f"wbc_update_batch at B={B}: K5 launched {launches} times (1 expected)")
+    ms = cuda_time_ms(lambda: run(it32, inputs), 3)
+    res64 = run(iface, inputs)
+    cpu = iface.to(device="cpu")
+    plain32 = run(cpu.to(dtype=torch.float32), inputs)
+    small = [a[:8] for a in inputs]
+    ref = run(cpu, small)
+    dec_err = rel_err(res64.decision[:8].cpu(), ref.decision)
+    solved_equal = bool(torch.equal(res64.qp.solved[:8].cpu(), ref.qp.solved))
+    out = {"batch": B, "ms_per_batch_f32": ms, "k5_launches_per_batch": launches,
+           "f32_torque_rel_err_vs_f64": rel_err(res32.torque, res64.torque),
+           "f32_plain_cpu_torque_rel_err_vs_f64": rel_err(plain32.torque, res64.torque.cpu()),
+           "f64_vs_cpu_plain_decision_rel_err": dec_err, "solved_equal": solved_equal,
+           "solved_f64": int(res64.qp.solved.sum()), "solved_f32": int(res32.qp.solved.sum()),
+           "finite_f32": bool(torch.isfinite(res32.decision).all())}
+    print(f"[13 wbc-batch] wbc_update_batch B={B} float32: {ms:.3f} ms per batch (op by op), K5 launches "
+          f"{launches}; torque float32 vs float64: kernel on the card {out['f32_torque_rel_err_vs_f64']:.2e}, plain "
+          f"on the CPU {out['f32_plain_cpu_torque_rel_err_vs_f64']:.2e} (no bar); float64 card vs CPU plain (B=8) "
+          f"decision rel err {dec_err:.2e} (bar 1e-8), solved equal {solved_equal}; solved {out['solved_f64']} "
+          f"(f64) / {out['solved_f32']} (f32) of {B}")
+    require(out["finite_f32"], "wbc_update_batch float32: non-finite decision")
+    require(dec_err <= 1e-8 and solved_equal, f"wbc_update_batch float64 vs plain: {dec_err:.3e}, {solved_equal}")
+    return out
+
+
+def quat_from_zyx(e) -> np.ndarray:
+    """Unit quaternion (w, x, y, z) of R = Rz(e0) Ry(e1) Rx(e2)."""
+    cz, sz = np.cos(e[0] / 2), np.sin(e[0] / 2)
+    cy, sy = np.cos(e[1] / 2), np.sin(e[1] / 2)
+    cx, sx = np.cos(e[2] / 2), np.sin(e[2] / 2)
+    return np.array([cz * cy * cx + sz * sy * sx, cz * cy * sx - sz * sy * cx,
+                     cz * sy * cx + sz * cy * sx, sz * cy * cx - cz * sy * sx])
+
+
+class Imu:
+    """The sensors of a replayed rbdState: the IMU quaternion of its base
+    orientation, the gyro (the world angular velocity in the base frame),
+    the accelerometer (the base's acceleration minus gravity, in the base
+    frame; the acceleration is the replay's base velocity differenced over
+    the tick), and the joint positions and velocities."""
+
+    def __init__(self, nj: int):
+        self.nj, self.v_prev = nj, None
+
+    def read(self, rbd):
+        nj, nv = self.nj, 6 + self.nj
+        euler, omega, v = rbd[0:3], rbd[nv : nv + 3], rbd[nv + 3 : nv + 6]
+        R = rotmat_from_zyx_np(euler)
+        a = np.zeros(3) if self.v_prev is None else (v - self.v_prev) / TICK_S
+        self.v_prev = v.copy()
+        return (quat_from_zyx(euler), R.T @ omega, R.T @ (a + np.array([0.0, 0.0, 9.81])), rbd[6 : 6 + nj],
+                rbd[nv + 6 :])
+
+
+def kalman_standing(iface, ticks: int = 1200) -> dict:
+    """The controller's Kalman estimator alone at G1's stand, as the JAX
+    package's test_kalman_converges_standing holds it: the sensors of the
+    standing rbd state at rest, the estimate started 5 cm off the base
+    position in every axis; after ``ticks`` steps (on the card, replays of
+    its graph) the largest errors of the base-to-foot positions and the base
+    height (bar 5e-3 m each) and of the base velocity (bar 1e-2 m/s).
+    Absolute x and y are a gauge freedom of leg odometry and are not held."""
+    rbd, nj = standing_rbd(iface), iface.info.nj
+    est = KalmanStateEstimator(iface.model, iface.info)
+    quat, q_j = quat_from_zyx(rbd[0:3]), rbd[6 : 6 + nj]
+    est.reset(quat, q_j, rbd[3:6] + 0.05)
+    accel = rotmat_from_zyx_np(rbd[0:3]).T @ np.array([0.0, 0.0, 9.81])
+    for _ in range(ticks):
+        est.update(quat, np.zeros(3), accel, q_j, np.zeros(nj), np.ones(4))
+    z = est.state.z.double().cpu().numpy()
+    q = torch.as_tensor(np.concatenate([np.zeros(3), rbd[0:3], q_j]), dtype=iface.dtype, device=iface.device)
+    rel = contact_positions(iface.model, iface.info, q).double().cpu().numpy()
+    return {"ticks": ticks, "foot_relative_m": float(np.abs(z[6:].reshape(-1, 3) - z[0:3] - rel).max()),
+            "base_height_m": float(abs(z[2] - rbd[5])), "base_velocity_m_s": float(np.abs(z[3:6]).max())}
+
+
+def kalman_controller(iface, **cfg) -> BipedalController:
+    return trotting_controller(iface, wbc_backend="device", estimator="kalman", **cfg)
+
+
+def odometry_gap(iface, rbds, flags) -> np.ndarray:
+    """Per replayed rbd state, the largest difference between its base
+    velocity and the base velocity that each stance foot's leg odometry
+    gives, -(J_j dq + omega x r) (the Kalman filter's velocity measurement,
+    at the flags the filter was given): how far the replay plant's own
+    state sets the filter's velocity sources apart.  float64, on the CPU."""
+    model, info = iface.model.to(device="cpu", dtype=torch.float64), iface.info
+    nj, nv = info.nj, info.generalized_dim
+    rbd = torch.as_tensor(np.stack(rbds))
+    q = torch.cat([torch.zeros(len(rbds), 3, dtype=torch.float64), rbd[:, 0:3], rbd[:, 6 : 6 + nj]], -1)
+    r = contact_positions(model, info, q)  # (T, nc, 3), base at the origin
+    J = frame_jacobians(model, q, info.contact_frame_ids)[..., :3, 6:]  # (T, nc, 3, nj)
+    omega = rbd[:, None, nv : nv + 3].expand(r.shape)
+    v_odo = -(torch.einsum("tcij,tj->tci", J, rbd[:, nv + 6 :]) + torch.linalg.cross(omega, r, dim=-1))
+    gap = (v_odo - rbd[:, None, nv + 3 : nv + 6]).abs().amax(-1).numpy()
+    return (gap * (np.stack(flags) > 0.5)).max(-1)
+
+
+def device_controller_run(iface32, torque: TorqueReadings, ticks: int = 400) -> dict:
+    """A trotting BipedalController(wbc_backend="device", estimator="kalman")
+    on the replay plant through its sensor entry points: starting_from_sensors,
+    then ``ticks`` update_from_sensors at 2.5 ms steps, each tick checked,
+    the estimate's base position and velocity held against the replay's.
+    Returns the controller, plant and imu, the replans' CUDA events, the
+    replan-tick flags, the Kalman steps' host seconds, the estimate's
+    errors (position, velocity) and the replay's odometry gap per tick, and
+    the WBC's calls as ((x_star, u_fb, rbd, flags), decision)."""
+    ctrl = kalman_controller(iface32)
+    advance, replans = ctrl.mpc.advance, []
+
+    def timed_advance(t, x):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        sol = advance(t, x)
+        ev[1].record()
+        replans.append(ev)
+        return sol
+
+    ctrl.mpc.advance = timed_advance
+    step, kalman_s, kalman_flags = ctrl.estimator.update, [], []
+
+    def timed_step(*args):
+        t0 = time.perf_counter()
+        out = step(*args)
+        kalman_s.append(time.perf_counter() - t0)
+        kalman_flags.append(np.array(args[-1], dtype=np.float64))
+        return out
+
+    ctrl.estimator.update = timed_step
+    wbc, wbc_calls = ctrl.device_wbc.update, []
+
+    def recorded_wbc(*args):
+        out = wbc(*args)
+        wbc_calls.append((tuple(np.array(a, dtype=np.float64) for a in args), out[0]))
+        return out
+
+    ctrl.device_wbc.update = recorded_wbc
+    plant, imu = Replay(iface32), Imu(iface32.info.nj)
+    nv = iface32.info.generalized_dim
+    ctrl.starting_from_sensors(0.0, *imu.read(plant.rbd), base_pos_guess=plant.rbd[3:6])
+    replan_tick, err_p, err_v, rbds = [], [], [], []
+    for k in range(ticks):
+        n = len(replans)
+        rbd = plant.measure(ctrl)
+        cmd = ctrl.update_from_sensors(k * TICK_S, *imu.read(rbd))
+        replan_tick.append(len(replans) > n)
+        require(ctrl.safe, f"device-WBC controller: unsafe at tick {k}")
+        torque.check(cmd, ctrl.wbc_primal_residual, f"device-WBC tick {k}")
+        z = ctrl.estimator.state.z[0:6].double().cpu().numpy()
+        err_p.append(float(np.abs(z[0:3] - rbd[3:6]).max()))
+        err_v.append(float(np.abs(z[3:6] - rbd[nv + 3 : nv + 6]).max()))
+        rbds.append(rbd.copy())
+    return {"ctrl": ctrl, "plant": plant, "imu": imu, "replans": replans, "replan_tick": np.asarray(replan_tick),
+            "kalman_s": kalman_s, "err_p": np.asarray(err_p), "err_v": np.asarray(err_v),
+            "odometry_gap": odometry_gap(iface32, rbds, kalman_flags[-ticks:]), "wbc_calls": wbc_calls}
+
+
+def f32_torque_errors(iface, cfg, wbc_calls) -> dict:
+    """The float32 WBC's torque against the float64 WBC on the controller's
+    own inputs (one float64 batch on the card), on the ticks whose float64
+    QP is solved (primal residual under the QP's 1e-3): the largest error
+    relative to max(1, max|tau|) of the ticks' own torque (K5 at B = 1 in
+    each tick's graph), and, to tell K5's share from the other float32 ops,
+    of float32 batches of the same inputs through K5 on the card, through
+    K5's plain version on the card, and through the plain versions on the
+    CPU."""
+    arrays = [np.stack([args[i] for args, _ in wbc_calls]) for i in range(4)]
+    ref = wbc_update_batch(iface.model, iface.info, cfg, *as_tensors(arrays, iface))
+    tau64, solved = ref.torque.cpu().numpy(), ref.qp.solved.cpu().numpy()
+    nj = iface.info.nj
+
+    def err(tau32):
+        tick = np.abs(tau32 - tau64).max(-1) / np.maximum(1.0, np.abs(tau64).max(-1))
+        return float(tick[solved].max()), float(tick.max())
+
+    it32, cpu32 = iface.to(dtype=torch.float32), iface.to(device="cpu", dtype=torch.float32)
+    batch = lambda it: wbc_update_batch(it.model, it.info, cfg, *as_tensors(arrays, it)).torque.cpu().numpy()
+    k5 = batch(it32)
+    with mock.patch.object(wbc_qp_module, "gauss_jordan_solve_pallas", gauss_jordan_solve):
+        plain_card = batch(it32)
+    out = {"ticks": len(wbc_calls), "ticks_f64_solved": int(solved.sum()),
+           "f64_max_primal_residual": float(ref.qp.primal_residual.max())}
+    for name, tau in (("tick_k5_b1", np.stack([d[-nj:] for _, d in wbc_calls])), ("batch_k5", k5),
+                      ("batch_plain_gj_card", plain_card), ("batch_plain_cpu", batch(cpu32))):
+        out[name] = dict(zip(("solved_ticks", "all_ticks"), err(tau)))
+    return out
+
+
+def device_controller_parity(iface, ticks: int = 20) -> dict:
+    """The device-WBC, Kalman-estimator controller in float64: production on
+    the card (K1, K2+K3 and K4 in the replans, K5 in every tick's WBC, both
+    the WBC and the filter replayed from CUDA graphs) against the all-plain
+    configuration on the CPU (every kernel's plain version), driven in
+    lockstep with the same sensors (the production controller's replay):
+    the largest relative error of pos_des, vel_des, tau_ff and the filter's
+    state over the ticks, and whether the planned contact flags agreed."""
+    prod = kalman_controller(iface)
+    cpu = iface.to(device="cpu")
+    plain = kalman_controller(dataclasses.replace(cpu, settings=g1_settings(iface.settings, "plain")))
+    plant, imu = Replay(iface), Imu(iface.info.nj)
+    sensors = imu.read(plant.rbd)
+    for ctrl in (prod, plain):
+        ctrl.starting_from_sensors(0.0, *sensors, base_pos_guess=plant.rbd[3:6])
+    errs = {"pos_des": 0.0, "vel_des": 0.0, "tau_ff": 0.0, "estimate_z": 0.0}
+    flags_equal = True
+    for k in range(ticks):
+        t = k * TICK_S
+        sensors = imu.read(plant.measure(prod))
+        flags_equal &= bool(np.array_equal(prod._planned_flags(t), plain._planned_flags(t)))
+        got, want = prod.update_from_sensors(t, *sensors), plain.update_from_sensors(t, *sensors)
+        for name in ("pos_des", "vel_des", "tau_ff"):
+            a, b = getattr(got, name), getattr(want, name)
+            errs[name] = max(errs[name], float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max())))
+        z, z_ref = prod.estimator.state.z.cpu(), plain.estimator.state.z
+        errs["estimate_z"] = max(errs["estimate_z"], rel_err(z, z_ref))
+    return {"errors": errs, "flags_equal": flags_equal, "safe": prod.safe and plain.safe,
+            "replans": prod.mpc.timer.count, "backends": {"production": prod.backends, "plain": plain.backends}}
+
+
+def phase_device_controller(device, iface) -> dict:
+    """Phase 13 (c): the controller with the device WBC and the Kalman
+    estimator on G1 (float32, production settings), trot from 0.1 s, fed by
+    the replay plant's synthesised sensors (module docstring)."""
+    iface32 = iface.to(dtype=torch.float32)
+    limits = np.tile(np.asarray(iface.task.wbc.torque_limits, dtype=np.float64), 2)
+    torque = TorqueReadings(limits)
+    reset_launches()
+    run = device_controller_run(iface32, torque)
+    ctrl, plant, imu, replans, flag, wbc_calls = (run[k] for k in ("ctrl", "plant", "imu", "replans", "replan_tick",
+                                                                  "wbc_calls"))
+    err_p, err_v, gap = run["err_p"], run["err_v"], run["odometry_gap"]
+    counts = read_launches()
+    require(all(counts[k] >= 1 for k in ("linearize", "riccati", "merit", "gauss_jordan")),
+            f"device-WBC controller: a kernel's wrapper launched it no time in 400 ticks: {counts}")
+    n_replans = len(replans)
+    require(n_replans == 50, f"device-WBC controller: {n_replans} replans (50 expected)")
+    torch.cuda.synchronize()
+    replan_ms = [a.elapsed_time(b) for a, b in replans]
+    ticks = np.asarray(ctrl.tick_timer.samples)
+    wbc_s, ex_s, kalman_s = list(ctrl.wbc_timer.samples), list(ctrl.tick_ex_timer.samples), run["kalman_s"][1:]
+    # four more ticks, the first of them a replan, under the profiler: the
+    # device's runs of each kernel per tick (every tick replays the WBC's
+    # graph, which no wrapper counts).  A tick is ~9,000 device activities;
+    # a 10-tick window once counted 9 of its 10 K5 runs (records the tracer
+    # dropped, as read here), so the window is kept short.
+    window_ticks, replans_before = 4, ctrl.mpc.timer.count
+    window = lambda: [ctrl.update_from_sensors(1.0 + i * TICK_S, *imu.read(plant.measure(ctrl)))
+                      for i in range(window_ticks)]
+    _, _, ran = profile_counts(window, cpu=False)
+    require(ran["gauss_jordan"] == window_ticks, f"device-WBC controller: the device ran K5 {ran['gauss_jordan']} "
+            f"times in {window_ticks} ticks (once per tick expected)")
+    require_runs(ran, ctrl.mpc.timer.count - replans_before, f"device-WBC controller, {window_ticks} ticks")
+    tau = f32_torque_errors(iface, ctrl.wbc_cfg, wbc_calls)
+    # the device activities (kernels, copies, fills) of one WBC and one
+    # filter step, each a graph replay, called past the run's timing
+    # wrappers; traced on the device only, as the other long windows are
+    wbc_activities = profile_counts(lambda: DeviceWbc.update(ctrl.device_wbc, *wbc_calls[-1][0]), cpu=False)[0]
+    sensors = imu.read(plant.measure(ctrl))
+    flags = ctrl._planned_flags(1.0 + window_ticks * TICK_S)
+    kalman_activities = profile_counts(lambda: KalmanStateEstimator.update(ctrl.estimator, *sensors, flags),
+                                       cpu=False)[0]
+    settle = slice(40, None)  # after the first 0.1 s (the filter's settling and the trot's start)
+    standing = kalman_standing(iface32)
+    out = {"ticks": int(ticks.size), "replans": n_replans, "backends": ctrl.backends,
+           "tick_no_replan": percentiles(ticks[~flag]), "tick_replan": percentiles(ticks[flag]),
+           "wbc": percentiles(wbc_s), "tick_ex_wbc": percentiles(ex_s),
+           "kalman_step": percentiles(kalman_s), "replan_cuda_events": percentiles(np.asarray(replan_ms) / 1e3),
+           "k5_runs_per_tick": ran["gauss_jordan"] / window_ticks, "kernel_runs_window": ran,
+           "window_ticks": window_ticks, "wrapper_launches": counts,
+           "estimate_max_abs_err": {"base_position_m": float(err_p.max()), "base_velocity_m_s": float(err_v.max()),
+                                    "base_position_m_after_0.1s": float(err_p[settle].max()),
+                                    "base_velocity_beyond_odometry_gap_m_s": float((err_v - gap).max()),
+                                    "replay_odometry_gap_m_s": float(gap.max())},
+           "kalman_standing": standing,
+           "torque": torque.summary(), "f32_torque_vs_f64": tau,
+           "device_activities_per_wbc": wbc_activities, "device_activities_per_kalman_step": kalman_activities}
+    print(f"[13 controller] device WBC + Kalman float32, 400 ticks, {n_replans} replans, backends "
+          f"{ctrl.backends}: tick without replan p50 {out['tick_no_replan']['p50_ms']:.3f} / p99 "
+          f"{out['tick_no_replan']['p99_ms']:.3f} ms, with replan p50 {out['tick_replan']['p50_ms']:.3f} / p99 "
+          f"{out['tick_replan']['p99_ms']:.3f} ms; wbc p50 {out['wbc']['p50_ms']:.3f} / p99 {out['wbc']['p99_ms']:.3f}"
+          f" ms; Kalman step (host, with its two copies) p50 {out['kalman_step']['p50_ms']:.3f} / p99 "
+          f"{out['kalman_step']['p99_ms']:.3f} ms; device activities per WBC {wbc_activities}, per Kalman step "
+          f"{kalman_activities}; replan p50 {out['replan_cuda_events']['p50_ms']:.3f} ms; the "
+          f"device ran {ran} in {window_ticks} ticks, one replan among them (profiler), the wrappers launched "
+          f"{counts}; estimate vs replay max |base "
+          f"position error| {err_p.max():.5f} m ({err_p[settle].max():.5f} after 0.1 s; bar 5e-3), |base velocity "
+          f"error| {err_v.max():.4f} m/s (p99 {np.percentile(err_v, 99):.4f}), beyond the replay's odometry gap "
+          f"{(err_v - gap).max():.4f} (bar 0.25; the gap up to {gap.max():.4f}); standing {standing['ticks']} steps: "
+          f"foot relative {standing['foot_relative_m']:.2e} m, height {standing['base_height_m']:.2e} m (bars 5e-3), "
+          f"velocity {standing['base_velocity_m_s']:.2e} m/s (bar 1e-2); {torque}; float32 torque vs the float64 WBC "
+          f"on the same inputs, rel err on the {tau['ticks_f64_solved']} of {tau['ticks']} ticks whose float64 QP is "
+          f"solved (on all; the float64 QP's largest primal residual {tau['f64_max_primal_residual']:.3e}): "
+          + ", ".join(f"{k} {tau[k]['solved_ticks']:.2e} ({tau[k]['all_ticks']:.2e})" for k in
+                      ("tick_k5_b1", "batch_k5", "batch_plain_gj_card", "batch_plain_cpu"))
+          + " (bars: the ticks' 5e-2; through K5 at most 4 x through its plain version on the card + 1e-3)")
+    tick, k5, plain = (tau[k]["solved_ticks"] for k in ("tick_k5_b1", "batch_k5", "batch_plain_gj_card"))
+    require(tick <= 5e-2, f"device WBC float32 torque vs float64 on the solved ticks' inputs: {tick:.3e}")
+    require(max(tick, k5) <= 4.0 * plain + 1e-3,
+            f"device WBC float32 torque through K5 ({tick:.3e} per tick, {k5:.3e} batched) beyond 4 x that through "
+            f"its plain version on the card ({plain:.3e}) + 1e-3")
+    require(err_p.max() <= 5e-3 and (err_v - gap).max() <= 0.25,
+            f"Kalman estimate left the replay: position {err_p.max():.5f} m (bar 5e-3), velocity beyond the "
+            f"replay's odometry gap {(err_v - gap).max():.4f} m/s (bar 0.25)")
+    require(max(standing["foot_relative_m"], standing["base_height_m"]) <= 5e-3
+            and standing["base_velocity_m_s"] <= 1e-2, f"Kalman estimate standing: {standing}")
+    par = device_controller_parity(iface)
+    print(f"[13 controller] float64 20 ticks, production on the card vs all plain on the CPU: "
+          + " ".join(f"{n} {v:.2e}" for n, v in par["errors"].items())
+          + f" (bar 1e-5); flags equal {par['flags_equal']}; safe {par['safe']}; {par['replans']} replans")
+    require(all(v <= 1e-5 for v in par["errors"].values()) and par["flags_equal"] and par["safe"],
+            f"device-WBC controller f64 parity failed: {par}")
+    out["parity_f64"] = par
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res.get("library_ms"),
             "ms_m67": res["ms_m67"], "warps_per_sm": res["warps_per_sm"]}
+
+
+def k5_entry(wbc: dict, stage: dict, dev_ctl: dict) -> dict:
+    """K5's entry: its numbers at the controller tick's shape (the device
+    WBC's float32 KKT, B = 1, phase 13), its launches in phase 13's
+    controller run (the wrapper's: the first tick runs op by op, the rest
+    replay its graph) and per tick (the profiler's), with the float64 and
+    B = 256 figures and phase 6's stage-KKT ones beside them."""
+    b1 = wbc["float32"]["b1"]
+    return {"name": "batched Gauss-Jordan solve (K5; the device WBC's KKT inverse)", "route": "cuda",
+            "source": "bipedal_control_tpu_torch/csrc/gauss_jordan.cu",
+            "replaces": "bipedal_control_tpu/ops/pallas_gj.py:77",
+            "launches": dev_ctl["wrapper_launches"]["gauss_jordan"], "max_abs_err": b1["max_abs_err"],
+            "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+            "library_ms": b1["library_ms"], "launches_per_controller_tick": dev_ctl["k5_runs_per_tick"],
+            "warps_per_sm": wbc["float32"]["warps_per_sm"], "registers": wbc["registers"], "wbc_kkt": wbc,
+            "stage_kkt": {k: stage[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "ms_m67", "warps_per_sm")}}
 
 
 def g1_entry(res: dict, launches: int) -> dict:
@@ -1467,6 +1968,9 @@ def main():
     g1_res = phase_g1(device, libs, g1, g1_robot)
     loop = phase_loop(device, g1)
     ctl = phase_controller(device, g1)
+    wbc_k5 = phase_wbc_kernel(device, libs["gauss_jordan"], g1)
+    wbc_batch = phase_wbc_batch(device, g1)
+    dev_ctl = phase_device_controller(device, g1)
     per_replan = ctl["sync"]["kernel_runs_per_replan"]
     counts = runs[0]["launches"]  # the first production run at B=256: 10 solves
     g1_counts = g1_res["main"]["launches"]  # G1's B=256 production run: 10 solves
@@ -1484,12 +1988,12 @@ def main():
                           counts["merit"], mer),
              registers=mer["registers"], g1=g1_entry(g1_res["merit"], g1_counts["merit"]),
              launches_per_controller_replan=per_replan["merit"]),
-        dict(kernel_entry("batched Gauss-Jordan solve (K5; no production caller)", src + "gauss_jordan.cu",
-                          "bipedal_control_tpu/ops/pallas_gj.py:77", counts["gauss_jordan"], gj),
-             launches_per_controller_replan=per_replan["gauss_jordan"]),
+        k5_entry(wbc_k5, gj, dev_ctl),
     ]
     print(json.dumps({"g1": {"robot": g1_robot, "solve_b256": g1_res["main"], "dummy_loop": loop}}))
     print(json.dumps({"controller": dict(ctl, robot=g1_robot)}))
+    print(json.dumps({"device_wbc": {"robot": g1_robot, "k5": wbc_k5, "wbc_update_batch": wbc_batch,
+                                     "controller": dev_ctl}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -9,7 +9,8 @@ command router on G1 (the counterpart of tests/test_commands.py's H1
 parsing test); the auxiliary joint controllers; policy files written by
 one package and read by the other; the async worker on the card's path
 (here its CPU twin), its crash and the controller's stop; the safety check;
-and the refusal of what the port does not have yet.  Only the reference's
+and the backends' names (the device WBC and the Kalman estimator construct,
+unknown names raise).  Only the reference's
 numpy functions are called: no JAX program is compiled here.
 """
 import dataclasses
@@ -262,7 +263,10 @@ def test_check_orientation_matches_reference():
 
 @pytest.mark.parametrize("field,value", [("wbc_backend", "device"), ("estimator", "kalman")])
 def test_unported_backends_raise(iface, field, value):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        BipedalController(iface, ControllerConfig(**{field: value}))
+    """The backends that were once unported construct (the device WBC and the
+    Kalman estimator, on the interface's device), and an unknown name of
+    either raises ValueError."""
+    ctrl = BipedalController(iface, ControllerConfig(**{field: value}))
+    assert (ctrl.device_wbc is not None) if field == "wbc_backend" else (ctrl.estimator is not None)
     with pytest.raises(ValueError, match="unknown"):
         BipedalController(iface, ControllerConfig(**{field: "nope"}))

@@ -8,7 +8,10 @@ on a GPU machine it runs on its own:
 
 float64 bars: 1e-9 for the Riccati sweep and the linearization (as the
 reference's kernel tests), rtol 1e-10 for the merit sums, 1e-10 for the
-Gauss-Jordan solve; the solver as a whole at the batched-parity bars (1e-5,
+Gauss-Jordan solve (also at the device WBC's 128 x 128 KKT); the device
+WBC's graph replay against op by op 1e-12 (it replays the same kernels on
+the same inputs), its batch against the plain version on the CPU 1e-8, the
+Kalman step's graph against the plain step on the CPU 1e-9; the solver as a whole at the batched-parity bars (1e-5,
 K 1e-3, step_size exact).  The float32 linearization is held at 1e-4
 relative to max(1, max|ref|): both sides round every product to 24 bits, so
 they differ by a few float32 ulps of the largest entries, far below 1e-4,
@@ -33,7 +36,20 @@ from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
 from bipedal_control_tpu_torch.runtime.mpc_runner import MpcRunner
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
 
-from chip_smoke import H1_CONTACTS, controller_parity, g1_settings, h1_shaped_description, profile_counts
+from bipedal_control_tpu_torch.estim.estimator import KalmanStateEstimator
+from bipedal_control_tpu_torch.runtime.controller import DeviceWbc, wbc_config_from_task
+from bipedal_control_tpu_torch.wbc.weighted_wbc import wbc_update, wbc_update_batch
+
+from chip_smoke import (
+    H1_CONTACTS,
+    controller_parity,
+    g1_settings,
+    h1_shaped_description,
+    profile_counts,
+    quat_from_zyx,
+    wbc_inputs,
+    wbc_kkt,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G1_URDF = os.path.join(REPO, "tests", "data", "g1_shaped_biped.urdf")
@@ -370,6 +386,111 @@ def test_controller_kernels_match_plain(cuda):
         assert err < 1e-5, name
 
 
+@pytest.fixture
+def g1_cuda(cuda):
+    iface = make_interface(G1_URDF, *G1_FILES, device=cuda)
+    iface.settings = g1_settings(iface.settings, "production")
+    return iface
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_gauss_jordan_kernel_at_wbc_shapes(g1_cuda, dtype, B):
+    """K5 on the device WBC's KKT systems (128 x 128 | eye(128), 4 column
+    tiles per system) against its plain version: float64 within 1e-10
+    relative to max(1, max|ref|).  In float32 the KKT's 2e-6 torque pivots
+    beside entries of ~1e4 leave a few digits, so the kernel is held to a
+    backward error: its residual max|A X - I| (in float64) at most 4 times
+    the plain version's plus 1e-6."""
+    iface = g1_cuda.to(dtype=dtype)
+    A, I = wbc_kkt(iface, wbc_inputs(iface, B, 17))
+    before = gj_kernel.gauss_jordan_solve_pallas.launches
+    got = gj_kernel.gauss_jordan_solve_pallas(A, I)
+    assert gj_kernel.gauss_jordan_solve_pallas.launches == before + 1
+    want = gauss_jordan_solve(A, I)
+    err = float((got.double() - want.double()).abs().max()) / max(1.0, float(want.double().abs().max()))
+    residual = lambda X: float((A.double() @ X.double() - I.double()).abs().max())
+    print(f"K5 {dtype} B={B}: rel err {err:.3e}, residual kernel {residual(got):.3e} plain {residual(want):.3e}")
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float64:
+        assert err <= 1e-10
+    else:
+        assert residual(got) <= 4.0 * residual(want) + 1e-6
+
+
+@pytest.mark.gpu
+def test_device_wbc_graph_matches_op_by_op(g1_cuda):
+    """DeviceWbc (float64) replays its CUDA graph from the second tick on:
+    its decision and primal residual equal wbc_update's op by op on the card
+    for new inputs (1e-12 relative to max(1, max|ref|)), and the device runs
+    K5 once per replayed tick (torch.profiler's kernel events).  After a
+    weight change (replace_config, what set_wbc_weight calls) the ticks
+    compute with the new weight."""
+    iface = g1_cuda
+    wbc = DeviceWbc(iface, wbc_config_from_task(iface.task))
+    x, u, rbd, flags = wbc_inputs(iface, 3, 19)
+    wbc.update(x[0], u[0], rbd[0], flags[0])  # op by op, then the capture
+    for k in (1, 2):
+        out = []
+        _, _, ran = profile_counts(lambda: out.append(wbc.update(x[k], u[k], rbd[k], flags[k])), cpu=False)
+        decision, residual = out[0]
+        T = lambda a: torch.as_tensor(a, device=iface.device)
+        ref = wbc_update(iface.model, iface.info, wbc.cfg, T(x[k]), T(u[k]), T(rbd[k]), T(flags[k]))
+        want = ref.decision.cpu().numpy()
+        err = float(np.abs(decision - want).max()) / max(1.0, float(np.abs(want).max()))
+        print(f"tick {k}: graph replay vs op by op decision rel err {err:.3e}; device ran {ran}")
+        assert err <= 1e-12 and abs(residual - float(ref.qp.primal_residual)) <= 1e-12
+        assert ran["gauss_jordan"] == 1
+    # a new weight drops the graph: the next tick runs op by op with it and recaptures
+    wbc.replace_config(dataclasses.replace(wbc.cfg, weight_base_accel=3.0))
+    T = lambda a: torch.as_tensor(a, device=iface.device)
+    ref = wbc_update(iface.model, iface.info, wbc.cfg, T(x[1]), T(u[1]), T(rbd[1]), T(flags[1])).decision.cpu().numpy()
+    for _ in range(2):  # op by op, then the new graph's first replay
+        decision, _ = wbc.update(x[1], u[1], rbd[1], flags[1])
+        assert float(np.abs(decision - ref).max()) / max(1.0, float(np.abs(ref).max())) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_wbc_update_batch_launches_k5_once(g1_cuda):
+    """wbc_update_batch (solve_qp_batch inside) at B = 8, float64: one K5
+    launch for the batch; decision within 1e-8 relative to max(1, max|ref|)
+    of the plain version on the CPU, ``solved`` equal."""
+    iface = g1_cuda
+    cfg = wbc_config_from_task(iface.task)
+    inputs = wbc_inputs(iface, 8, 23)
+    before = gj_kernel.gauss_jordan_solve_pallas.launches
+    got = wbc_update_batch(iface.model, iface.info, cfg, *(torch.as_tensor(a, device=iface.device) for a in inputs))
+    assert gj_kernel.gauss_jordan_solve_pallas.launches == before + 1
+    cpu = iface.to(device="cpu")
+    want = wbc_update_batch(cpu.model, cpu.info, cfg, *(torch.as_tensor(a) for a in inputs))
+    err = float((got.decision.cpu() - want.decision).abs().max()) / max(1.0, float(want.decision.abs().max()))
+    print(f"wbc_update_batch B=8 card vs CPU plain: decision rel err {err:.3e}")
+    assert err <= 1e-8 and torch.equal(got.qp.solved.cpu(), want.qp.solved)
+
+
+@pytest.mark.gpu
+def test_kalman_graph_matches_plain(g1_cuda):
+    """KalmanStateEstimator on the card (its step replayed from a CUDA graph)
+    against the same estimator on the CPU (the plain step), float64, 50
+    ticks with contact changes: rbdState within 1e-9."""
+    iface = g1_cuda
+    x0, nj = np.asarray(iface.initial_state), iface.info.nj
+    cpu = iface.to(device="cpu")
+    ests = [KalmanStateEstimator(m.model, m.info, debounce_ticks=1) for m in (iface, cpu)]
+    rng = np.random.default_rng(29)
+    quat = quat_from_zyx(np.array([0.2, 0.01, -0.02]))
+    for est in ests:
+        est.reset(quat, x0[12:], x0[6:9])
+    for k in range(50):
+        flags = np.array([1.0, 1.0, 0.0, 0.0]) if (k // 10) % 2 else np.ones(4)
+        s = (quat_from_zyx(np.array([0.2 + 0.01 * k, 0.01, -0.02])), rng.normal(scale=0.05, size=3),
+             np.array([0.0, 0.0, 9.81]) + rng.normal(scale=0.2, size=3), x0[12:] + rng.normal(scale=0.02, size=nj),
+             rng.normal(scale=0.2, size=nj), flags)
+        got, want = (est.update(*s) for est in ests)
+        assert float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max())) <= 1e-9, k
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The kernels' CUDA entry points raise on CPU tensors instead of
     computing there (the plain versions are reached only through the
@@ -380,3 +501,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     z = lambda *s: torch.zeros(*s, dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         merit_kernel.merit_sums_cuda(z(10), {}, 0.0, "rk2", z(2, 16), z(2, 16), z(2, 16), z(2, 4), z(2, 4), z(2, 4), z(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        gj_kernel.gauss_jordan_solve_cuda(z(1, 4, 4), z(1, 4, 4))
