@@ -60,8 +60,9 @@ def build_libraries(requests) -> list[BuiltLibrary]:
 
 
 def build_library(name: str, source: str, defines: dict[str, str]) -> BuiltLibrary:
-    """Compile csrc/<source> under the given #defines and load it; the cache
-    key hashes every csrc file, the defines and the flags."""
+    """Compile csrc/<source> (or a source at an absolute path) under the
+    given #defines and load it; the cache key hashes every csrc file, the
+    source, the defines and the flags."""
     request = (name, source, tuple(sorted(defines.items())))
     if request in _loaded:
         return _loaded[request]
@@ -70,6 +71,7 @@ def build_library(name: str, source: str, defines: dict[str, str]) -> BuiltLibra
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    h.update((CSRC / source).read_bytes())
     # the defines go into a generated translation unit: nvcc would split a
     # comma-separated -D value (PARENT_LIST=0,1,2) into several options
     unit = "".join(f"#define {k} {v}\n" for k, v in sorted(defines.items())) + f'#include "{source}"\n'

@@ -23,8 +23,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   6. K5 (batched Gauss-Jordan) vs its plain version on the 17,152 stage-KKT
      systems (38 x 38 | 23) of phase 3's problem, float64 and float32,
      beside torch.linalg.solve on the same inputs; timed at 17,152 and 67
-     systems;
-  Phases 3-6 print each kernel's resident blocks and warps per SM
+     systems; K5's launch in each type (systems per CTA, resident CTAs and
+     warps per SM, registers, spills);
+  Phases 3-5 print each kernel's resident blocks and warps per SM
   (cudaOccupancyMaxActiveBlocksPerMultiprocessor, float32).  K1's and K4's
   times and every M=67 time are device times from a CUDA graph of the
   launches: timed back to back, a launch shorter than its wrapper's host
@@ -84,7 +85,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      and B = 256, float64 (1e-10 against its plain version) and float32
      (its residual max|A X - I| at most 4 x the plain version's + 1e-6),
      timed beside its plain version, torch.linalg.solve and torch.linalg.inv
-     of the same systems, with its bound, resident blocks and ptxas report;
+     of the same systems, with its bound, its time per pivot and per panel
+     at B = 1, its launch at each shape (CTAs per system: a thread-block
+     cluster at the WBC's KKT; resident CTAs and warps per SM, registers,
+     spills) and ptxas report;
      (b) wbc_update_batch at B = 256 on the card, float32, timed, one K5
      launch for the batch, its torque's distance from float64 printed
      beside the plain version's, and float64 against the plain version on
@@ -454,9 +458,8 @@ def k23_ops(B: int, N: int, nx: int, nu: int, ne: int) -> float:
 def k5_ops(batch: int, n: int, k: int) -> float:
     """The pivot-free Gauss-Jordan solve A X = B: per pivot i, one division
     for each column right of it in the pivot row and one multiply-add (two
-    operations) for each such column in the n - 1 other rows.  The
-    function's work: K5's repeated elimination of A per column tile is not
-    counted."""
+    operations) for each such column in the n - 1 other rows (the
+    function's work, as the plain version does it)."""
     W = n + k
     return float(batch * sum((W - 1 - i) * (1 + 2 * (n - 1)) for i in range(n)))
 
@@ -476,12 +479,16 @@ def phase_device():
 
 
 def ptxas_summary(report: str) -> list[str]:
-    """'<dtype>: <registers> regs, <spill stores>' per kernel entry."""
+    """'<dtype>: <registers> regs, <spill stores>' per kernel entry (K5's
+    entries named by their CTA shape: '<dtype> L64: ...')."""
     out, dtype, spill = [], None, ""
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '\S*?I([df])EE", ln)
+        m = re.search(r"Compiling entry function '\S*?I([df])(EE|NS_4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E)", ln)
         if m:
             dtype, spill = ("f64" if m.group(1) == "d" else "f32"), ""
+            if m.group(3):  # K5's Tile<WR, WC, WGR, WGC, ...>: 8 WR WGR rows
+                wr, wgr = int(m.group(3)), int(m.group(5))
+                dtype += {40: " S40", 128: " L64", 192: " T64"}[8 * wr * wgr]
         elif dtype and "spill stores" in ln:
             spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
         elif dtype and "registers" in ln:
@@ -516,6 +523,21 @@ def occupancy(lib, name: str, what: str, *shape: int) -> int:
     blocks, warps = resident_per_sm(lib, name, 4, *shape)
     print(f"[{what}] float32 occupancy: {blocks} blocks = {warps} warps resident per SM")
     return warps
+
+
+def k5_config(batch: int, n: int, k: int, dtype, what: str) -> dict:
+    """Print and return K5's launch at this shape (gj_kernel.launch_config):
+    its CTA shape, CTAs per system (the cluster size), systems per CTA,
+    resident CTAs and warps per SM, co-resident clusters, registers and
+    local (spill) bytes per thread, shared bytes per CTA."""
+    cfg = gj_kernel.launch_config(batch, n, k, dtype)
+    cluster = f", {cfg['max_active_clusters']} co-resident clusters" if cfg["ctas_per_system"] > 1 else ""
+    print(f"[{what}] {str(dtype)[6:]} B={batch} ({n} x {n} | {k}): {cfg['kind']}, {cfg['ctas']} CTAs of "
+          f"{cfg['threads_per_cta']} threads, {cfg['ctas_per_system']} CTA(s) per system, {cfg['systems_per_cta']} "
+          f"system(s) per CTA; {cfg['ctas_per_sm']} CTAs = {cfg['warps_per_sm']} warps resident per SM{cluster}; "
+          f"{cfg['registers']} registers and {cfg['local_bytes']} B local per thread, "
+          f"{cfg['shared_bytes_per_cta']} B shared per CTA; {cfg['panels']} panels of 8 pivots")
+    return cfg
 
 
 def random_lqr(B: int, N: int, nx: int, nu: int, ne: int, seed: int, device, dtype):
@@ -725,11 +747,12 @@ def stage_kkt(nodes, masks, dtype):
     return A.reshape(-1, nu + ne, nu + ne).contiguous(), B.reshape(-1, nu + ne, B.shape[-1]).contiguous()
 
 
-def phase_gauss_jordan(device, lib):
+def phase_gauss_jordan(device):
     """K5 vs plain.  float64 bar 1e-10 relative to max(1, max|ref|).  f32
     bar 1e-3, as the Riccati kernel's: the same quasi-definite systems
     (dual_eps 1.2e-5) solved in the same order up to fused multiply-adds
-    agree to ~1e-5; a wrong pivot step is off by O(0.1)."""
+    agree to ~1e-5; a wrong pivot step is off by O(0.1).  Prints K5's
+    launch (CTA shape, resident CTAs and warps per SM, registers, spills)."""
     out = {}
     for dtype, bar in ((torch.float64, 1e-10), (torch.float32, 1e-3)):
         nodes, masks, _ = random_lqr(256, N_NODES, 22, 22, 16, 7, device, dtype)
@@ -749,7 +772,9 @@ def phase_gauss_jordan(device, lib):
             batch, n, k = A.shape[0], A.shape[1], B.shape[2]
             A67, B67 = A[:N_NODES].contiguous(), B[:N_NODES].contiguous()
             out["ms_m67"] = graph_time_ms(lambda: gj_kernel.gauss_jordan_solve_cuda(A67, B67), 50)
-    out["warps_per_sm"] = occupancy(lib.lib, "gauss_jordan", "6 gauss-jordan", n, k)
+        out.setdefault("config", {})[str(dtype)[6:]] = k5_config(A.shape[0], A.shape[1], B.shape[2], dtype,
+                                                                 "6 gauss-jordan")
+    out["warps_per_sm"] = out["config"]["float32"]["warps_per_sm"]
     out.update(bound(4 * batch * (n * n + 2 * n * k), k5_ops(batch, n, k)))
     print(f"[6 gauss-jordan] float32: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
           f"torch.linalg.solve {out['library_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}); "
@@ -1528,12 +1553,15 @@ def phase_wbc_kernel(device, lib, iface) -> dict:
     B = 1 (a controller tick) and B = 256 (wbc_update_batch), float64 and
     float32, against its plain version, with the library's inverse of the
     same systems (torch.linalg.solve against the identity, and
-    torch.linalg.inv) timed beside it.  float64 bar 1e-10 relative to
-    max(1, max|ref|).  In float32 the KKT's torque pivots, sigma +
-    torque_reg = 2e-6 beside entries of order weight_swing_leg^2 = 1e4,
-    leave a few digits of the inverse, so the kernel is held to a backward
-    error, as the gpu test holds it: its residual max|A X - I| (in float64)
-    at most 4 times the plain version's plus 1e-6."""
+    torch.linalg.inv) timed beside it, and K5's launch at each shape (CTAs
+    per system, resident CTAs and warps per SM, registers, spills) and, at
+    B = 1, its time per pivot and per panel of 8 (the chain of n pivots).
+    float64 bar 1e-10 relative to max(1, max|ref|).  In float32 the KKT's
+    torque pivots, sigma + torque_reg = 2e-6 beside entries of order
+    weight_swing_leg^2 = 1e4, leave a few digits of the inverse, so the
+    kernel is held to a backward error, as the gpu test holds it: its
+    residual max|A X - I| (in float64) at most 4 times the plain version's
+    plus 1e-6."""
     out = {}
     for dtype in (torch.float64, torch.float32):
         it = iface.to(dtype=dtype)
@@ -1556,9 +1584,13 @@ def phase_wbc_kernel(device, lib, iface) -> dict:
             n = A.shape[-1]
             peak = PEAK_F64_OPS_PER_S if dtype == torch.float64 else PEAK_F32_OPS_PER_S
             r.update(bound(A.element_size() * B * 3 * n * n, k5_ops(B, n, n), peak))
-            print(f"[13 wbc-k5] {str(dtype)[6:]} B={B} ({n} x {n} | {n}), {B * ((n + 31) // 32)} blocks: kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, torch.linalg.solve {r['library_ms']:.4f} ms, "
-                  f"torch.linalg.inv {r['library_inv_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
+            r["config"] = k5_config(B, n, n, dtype, "13 wbc-k5")
+            r["us_per_pivot"] = r["ms"] * 1e3 / n
+            r["us_per_panel"] = r["ms"] * 1e3 / r["config"]["panels"]
+            print(f"[13 wbc-k5] {str(dtype)[6:]} B={B} ({n} x {n} | {n}): kernel {r['ms']:.4f} ms "
+                  f"({r['us_per_pivot']:.3f} us per pivot, {r['us_per_panel']:.3f} us per panel), plain "
+                  f"{r['plain_ms']:.3f} ms, torch.linalg.solve {r['library_ms']:.4f} ms, torch.linalg.inv "
+                  f"{r['library_inv_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
                   f"kernel vs plain max rel err {err:.2e} (max |inverse| {r['max_abs_inverse']:.3e}); residual "
                   f"max|A X - I| kernel {r['residual']:.3e}, plain {r['plain_residual']:.3e}")
             require(bool(torch.isfinite(got).all()), f"K5 at the WBC's KKT: non-finite inverse in {dtype} at B={B}")
@@ -1569,12 +1601,9 @@ def phase_wbc_kernel(device, lib, iface) -> dict:
                         f"K5 at the WBC's KKT, float32 B={B}: residual {r['residual']:.3e} over 4 x the plain "
                         f"version's {r['plain_residual']:.3e} + 1e-6")
             res[f"b{B}"] = r
-        bps, warps = resident_per_sm(lib.lib, "gauss_jordan", A.element_size(), 128, 128)
-        res.update(blocks_per_sm=bps, warps_per_sm=warps)
         out[str(dtype)[6:]] = res
     out["registers"] = ptxas_summary(lib.ptxas_report)
-    print(f"[13 wbc-k5] resident per SM at (128 | 128): float64 {out['float64']['blocks_per_sm']} blocks, float32 "
-          f"{out['float32']['blocks_per_sm']} blocks of 8 warps; ptxas {out['registers']}")
+    print(f"[13 wbc-k5] ptxas: {out['registers']}")
     return out
 
 
@@ -1923,10 +1952,11 @@ def kernel_entry(name, source, replaces, launches, res):
 
 def k5_entry(wbc: dict, stage: dict, dev_ctl: dict) -> dict:
     """K5's entry: its numbers at the controller tick's shape (the device
-    WBC's float32 KKT, B = 1, phase 13), its launches in phase 13's
-    controller run (the wrapper's: the first tick runs op by op, the rest
-    replay its graph) and per tick (the profiler's), with the float64 and
-    B = 256 figures and phase 6's stage-KKT ones beside them."""
+    WBC's float32 KKT, B = 1, phase 13: with its time per pivot and per
+    panel of 8), its launches in phase 13's controller run (the wrapper's:
+    the first tick runs op by op, the rest replay its graph) and per tick
+    (the profiler's), with the float64 and B = 256 figures and phase 6's
+    stage-KKT ones beside them."""
     b1 = wbc["float32"]["b1"]
     return {"name": "batched Gauss-Jordan solve (K5; the device WBC's KKT inverse)", "route": "cuda",
             "source": "bipedal_control_tpu_torch/csrc/gauss_jordan.cu",
@@ -1934,9 +1964,11 @@ def k5_entry(wbc: dict, stage: dict, dev_ctl: dict) -> dict:
             "launches": dev_ctl["wrapper_launches"]["gauss_jordan"], "max_abs_err": b1["max_abs_err"],
             "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": b1["library_ms"], "launches_per_controller_tick": dev_ctl["k5_runs_per_tick"],
-            "warps_per_sm": wbc["float32"]["warps_per_sm"], "registers": wbc["registers"], "wbc_kkt": wbc,
+            "us_per_pivot_b1": b1["us_per_pivot"], "us_per_panel_b1": b1["us_per_panel"],
+            "ctas_per_system_b1": b1["config"]["ctas_per_system"], "warps_per_sm": b1["config"]["warps_per_sm"],
+            "registers": wbc["registers"], "wbc_kkt": wbc,
             "stage_kkt": {k: stage[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                                                 "bound_by", "ms_m67", "warps_per_sm")}}
+                                                 "bound_by", "ms_m67", "warps_per_sm", "config")}}
 
 
 def g1_entry(res: dict, launches: int) -> dict:
@@ -1961,7 +1993,7 @@ def main():
     ric = phase_riccati(device, libs["riccati"])
     mer = phase_merit(model, info, device, libs["merit"])
     lin = phase_linearize(model, info, device, libs["linearize"])
-    gj = phase_gauss_jordan(device, libs["gauss_jordan"])
+    gj = phase_gauss_jordan(device)
     phase_parity(model, info, device)
     runs = phase_main(model, info, device)
     phase_single(model, info, device)

@@ -8,7 +8,9 @@ on a GPU machine it runs on its own:
 
 float64 bars: 1e-9 for the Riccati sweep and the linearization (as the
 reference's kernel tests), rtol 1e-10 for the merit sums, 1e-10 for the
-Gauss-Jordan solve (also at the device WBC's 128 x 128 KKT); the device
+Gauss-Jordan solve (also at the device WBC's 128 x 128 KKT, and after a
+CUDA-graph replay; in float32 its backward error max|A X - B| at most 4 x
+the plain version's + 1e-6); the device
 WBC's graph replay against op by op 1e-12 (it replays the same kernels on
 the same inputs), its batch against the plain version on the CPU 1e-8, the
 Kalman step's graph against the plain step on the CPU 1e-9; the solver as a whole at the batched-parity bars (1e-5,
@@ -31,7 +33,6 @@ from bipedal_control_tpu_torch.model.urdf import JOINT_PRISMATIC, JOINT_REVOLUTE
 from bipedal_control_tpu_torch.ocp.linearize import linearize_node_structured
 from bipedal_control_tpu_torch.ocp.problem import LinearizedNode, NodeRefs, OcpSettings
 from bipedal_control_tpu_torch.ops import gj_kernel, linearize_kernel, merit_kernel, riccati_kernel
-from bipedal_control_tpu_torch.ops.linalg import gauss_jordan_solve
 from bipedal_control_tpu_torch.parallel.batch_solver import make_batched_solver
 from bipedal_control_tpu_torch.runtime.mpc_runner import MpcRunner
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
@@ -249,23 +250,85 @@ def test_linearize_kernel_matches_plain(cuda, dtype, integrator, robot, M):
         assert float((g - w).abs().max()) / max(1.0, float(w.abs().max())) < bar, name
 
 
+def _gj_check(A, B, got):
+    """gj_kernel.solution_error's bars: float64 within 1e-10 of the plain
+    version relative to max(1, max|ref|); float32 the backward error
+    max|A X - B| (in float64) at most 4 x the plain version's + 1e-6."""
+    err, bar = gj_kernel.solution_error(A, B, got)
+    assert err <= bar, (err, bar)
+
+
+# (batch, n, m, k) and the launch each must take: a CTA shape and its CTAs
+# per system (a thread-block cluster when > 1)
+GJ_CASES = [
+    ((40, 14, 4, 6), ("S40", 1)),
+    ((67, 38, 16, 23), ("S40", 1)),
+    ((3, 8, 2, 3), ("S40", 1)),
+    ((1, 45, 15, 70), ("L64", 2)),  # n not a multiple of the panel, k > n
+    ((131, 45, 15, 70), ("L64", 2)),
+    ((133, 45, 15, 10), ("L64", 1)),  # k < n, one CTA per system
+    ((2, 127, 40, 5), ("L64", 3)),
+    ((1, 127, 40, 200), ("L64", 6)),
+    ((2, 128, 42, 384), ("L64", 8)),  # the widest cluster
+    ((2, 130, 44, 10), ("T64", 3)),  # 192-row CTAs
+    ((1, 150, 50, 150), ("T64", 5)),
+    ((3, 192, 64, 64), ("T64", 4)),
+]
+
+
 @pytest.mark.gpu
-def test_gauss_jordan_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case,launch", GJ_CASES, ids=[f"B{c[0]}_n{c[1]}_k{c[3]}" for c, _ in GJ_CASES])
+def test_gauss_jordan_kernel_matches_plain(cuda, case, launch, dtype):
+    """K5 against its plain version over every path of its launch: the
+    small-system CTAs, 64-column CTAs of 128 and 192 rows alone and in
+    clusters of 2-8, n not a multiple of the 8-pivot panel, k < n and
+    k > n."""
+    batch, n, m, k = case
     rng = np.random.default_rng(5)
-    batch, n, m, k = 40, 14, 4, 6
-    W = rng.normal(size=(batch, n - m, n - m))
-    A = np.zeros((batch, n, n))
-    A[:, : n - m, : n - m] = W @ np.swapaxes(W, 1, 2) + np.eye(n - m)
-    D = rng.normal(size=(batch, m, n - m))
-    A[:, n - m :, : n - m] = D
-    A[:, : n - m, n - m :] = np.swapaxes(D, 1, 2)
-    A[:, n - m :, n - m :] = -0.5 * np.eye(m)
-    A, B = torch.as_tensor(A, device=cuda), torch.as_tensor(rng.normal(size=(batch, n, k)), device=cuda)
+    A = torch.as_tensor(gj_kernel.quasi_definite(rng, batch, n, m), dtype=dtype, device=cuda)
+    B = torch.as_tensor(rng.normal(size=(batch, n, k)), dtype=dtype, device=cuda)
+    cfg = gj_kernel.launch_config(batch, n, k, dtype)
+    assert (cfg["kind"], cfg["ctas_per_system"]) == launch
     before = gj_kernel.gauss_jordan_solve_pallas.launches
     got = gj_kernel.gauss_jordan_solve_pallas(A, B)
     assert gj_kernel.gauss_jordan_solve_pallas.launches == before + 1
-    want = gauss_jordan_solve(A, B)
-    assert float((got - want).abs().max()) / max(1.0, float(want.abs().max())) < 1e-10
+    _gj_check(A, B, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_gauss_jordan_kernel_in_cuda_graph(cuda, dtype, B):
+    """K5 captured in a CUDA graph (at B = 1 a cluster launch, as in the
+    device WBC's graph) and replayed on new inputs, against the plain
+    version; the capture counts no launch."""
+    rng = np.random.default_rng(7)
+    A = torch.as_tensor(gj_kernel.quasi_definite(rng, B, 128, 86), dtype=dtype, device=cuda)
+    I = torch.eye(128, dtype=dtype, device=cuda).expand(B, 128, 128).contiguous()
+    gj_kernel.gauss_jordan_solve_pallas(A, I)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = gj_kernel.gauss_jordan_solve_pallas.launches
+    with torch.cuda.graph(graph):
+        X = gj_kernel.gauss_jordan_solve_pallas(A, I)
+    assert gj_kernel.gauss_jordan_solve_pallas.launches == before
+    for seed in (8, 9):
+        A.copy_(torch.as_tensor(gj_kernel.quasi_definite(np.random.default_rng(seed), B, 128, 86), dtype=dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        _gj_check(A, I, X)
+
+
+@pytest.mark.gpu
+def test_gauss_jordan_kernel_refuses_unsupported_shapes(cuda):
+    """n > 192 or n + k > 512 raises instead of launching."""
+    assert gj_kernel.limits() == (192, 512)
+    z = lambda *s: torch.zeros(*s, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="n <= 192"):
+        gj_kernel.gauss_jordan_solve_cuda(z(1, 193, 193), z(1, 193, 1))
+    with pytest.raises(ValueError, match="n \\+ k <= 512"):
+        gj_kernel.gauss_jordan_solve_cuda(z(1, 100, 100), z(1, 100, 413))
 
 
 @pytest.mark.gpu
@@ -394,12 +457,13 @@ def g1_cuda(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("B", [1, 2, 131, 133, 256])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_gauss_jordan_kernel_at_wbc_shapes(g1_cuda, dtype, B):
-    """K5 on the device WBC's KKT systems (128 x 128 | eye(128), 4 column
-    tiles per system) against its plain version: float64 within 1e-10
-    relative to max(1, max|ref|).  In float32 the KKT's 2e-6 torque pivots
+    """K5 on the device WBC's KKT systems (128 x 128 | eye(128): a cluster
+    of 4 CTAs per system) against its plain version at batches below, near
+    and above one system per SM: float64 within 1e-10 relative to
+    max(1, max|ref|).  In float32 the KKT's 2e-6 torque pivots
     beside entries of ~1e4 leave a few digits, so the kernel is held to a
     backward error: its residual max|A X - I| (in float64) at most 4 times
     the plain version's plus 1e-6."""
@@ -408,15 +472,9 @@ def test_gauss_jordan_kernel_at_wbc_shapes(g1_cuda, dtype, B):
     before = gj_kernel.gauss_jordan_solve_pallas.launches
     got = gj_kernel.gauss_jordan_solve_pallas(A, I)
     assert gj_kernel.gauss_jordan_solve_pallas.launches == before + 1
-    want = gauss_jordan_solve(A, I)
-    err = float((got.double() - want.double()).abs().max()) / max(1.0, float(want.double().abs().max()))
-    residual = lambda X: float((A.double() @ X.double() - I.double()).abs().max())
-    print(f"K5 {dtype} B={B}: rel err {err:.3e}, residual kernel {residual(got):.3e} plain {residual(want):.3e}")
-    assert bool(torch.isfinite(got).all())
-    if dtype == torch.float64:
-        assert err <= 1e-10
-    else:
-        assert residual(got) <= 4.0 * residual(want) + 1e-6
+    err, bar = gj_kernel.solution_error(A, I, got)
+    print(f"K5 {dtype} B={B}: error {err:.3e}, bar {bar:.3e}")  # the margin, shown by pytest -rP
+    assert err <= bar
 
 
 @pytest.mark.gpu
