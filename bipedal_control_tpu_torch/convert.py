@@ -12,6 +12,8 @@ compute on identical parameters:
     interface_from_numpy({"model": ..., "info": ..., "settings": ..., "Q": Q, "R": R})
     wbc_task_config_from_numpy(dataclasses.asdict(wbc_cfg))
     kalman_state_from_numpy({"z": np.asarray(state.z), "P": np.asarray(state.P)})
+    sim_state_from_numpy({name: np.asarray(a) for name, a in state._asdict().items()})
+    sim_config_from_numpy(dataclasses.asdict(sim_cfg))
 
 Tensors land on ``device``: the card when None (utils/device.py); pass
 ``device="cpu"`` for the CPU.
@@ -27,6 +29,7 @@ from .estim.kalman import KalmanState
 from .model.centroidal import CentroidalModelInfo
 from .model.robot_model import LEAF_FIELDS, RobotModel, ancestor_mask_from_parents
 from .ocp.problem import NodeRefs, OcpSettings
+from .sim.physics import SimConfig, SimState
 from .utils.device import resolve_device
 from .wbc.tasks import WbcTaskConfig
 
@@ -134,3 +137,14 @@ def wbc_task_config_from_numpy(fields: dict) -> WbcTaskConfig:
 def kalman_state_from_numpy(fields: dict, dtype=torch.float64, device=None) -> KalmanState:
     """The contact LKF's state (z, P) from the reference's as numpy arrays."""
     return KalmanState(z=_tensor(fields["z"], dtype, device), P=_tensor(fields["P"], dtype, device))
+
+
+def sim_state_from_numpy(fields: dict, dtype=torch.float64, device=None) -> SimState:
+    """The physics state (q, v, anchor) from the reference's ``JaxSimState``
+    as numpy arrays (any leading scenario dims)."""
+    return SimState(**{name: _tensor(fields[name], dtype, device) for name in SimState._fields})
+
+
+def sim_config_from_numpy(fields: dict) -> SimConfig:
+    """SimConfig from ``dataclasses.asdict`` of the reference's ``JaxSimConfig``."""
+    return SimConfig(**{k: float(v) for k, v in fields.items()})

@@ -24,14 +24,17 @@ from ..utils.rotations import rotmat_from_zyx
 
 
 class TargetTable(NamedTuple):
-    """Padded reference trajectory for device-side interpolation."""
+    """Padded reference trajectory for device-side interpolation.  The
+    fields may carry a leading scenario axis B (one table per scenario: the
+    batched closed loop retargets each scenario from its own observation)."""
 
-    times: torch.Tensor  # (T,) padded with +inf
-    states: torch.Tensor  # (T, nx) padded by repeating the last row
-    inputs: torch.Tensor  # (T, nu)
+    times: torch.Tensor  # ([B,] T) padded with +inf
+    states: torch.Tensor  # ([B,] T, nx) padded by repeating the last row
+    inputs: torch.Tensor  # ([B,] T, nu)
 
     def state_at(self, t):
-        """(S..., nx) for a tensor of times (S...)."""
+        """(S..., nx) for a tensor of times (S...); (B, S..., nx) for a
+        batched table, the times shared by its scenarios."""
         return _interp_rows(self.times, self.states, t)
 
     def input_at(self, t):
@@ -39,12 +42,21 @@ class TargetTable(NamedTuple):
 
 
 def _interp_rows(times, rows, t):
-    idx = torch.clamp(torch.searchsorted(times, t, right=True), 1, rows.shape[0] - 1)
-    t0, t1 = times[idx - 1], times[idx]
+    """rows ([B,] T, w) on their times ([B,] T), interpolated at the times t
+    (S...) (shared by the B tables): ([B,] S..., w).  The indices stay on
+    the device (gathers)."""
+    if times.dim() == 1:
+        return _interp_rows(times[None], rows[None], t)[0]
+    B, T, w = rows.shape
+    tb = t.reshape(1, -1).expand(B, -1).contiguous()
+    idx = torch.clamp(torch.searchsorted(times.contiguous(), tb, right=True), 1, T - 1)
+    t0, t1 = torch.gather(times, 1, idx - 1), torch.gather(times, 1, idx)
     denom = torch.where(t1 > t0, t1 - t0, torch.ones_like(t1))
-    alpha = torch.clamp((t - t0) / denom, 0.0, 1.0)
+    alpha = torch.clamp((tb - t0) / denom, 0.0, 1.0)
     alpha = torch.where(torch.isfinite(t1), alpha, torch.zeros_like(alpha))[..., None]
-    return rows[idx - 1] * (1.0 - alpha) + rows[idx] * alpha
+    pick = lambda i: torch.gather(rows, 1, i[..., None].expand(i.shape + (w,)))
+    out = pick(idx - 1) * (1.0 - alpha) + pick(idx) * alpha
+    return out.reshape((B,) + t.shape + (w,))
 
 
 @dataclasses.dataclass

@@ -11,8 +11,8 @@ of native/host_model.cc (``native=False``: its numpy twin).  The WBC and the
 estimator have two backends each:
 
 - ``wbc_backend="host"`` (default): the WBC's model quantities in
-  native/host_model.cc, its ADMM in native/host_qp.cc, the task rows in
-  numpy: nothing of the WBC runs on the card.  ``"device"``: the WBC of
+  native/host_model.cc, its task rows, factorization and ADMM in one call
+  of the port's native/host_wbc.cc: nothing of the WBC runs on the card.  ``"device"``: the WBC of
   wbc/weighted_wbc.py on the interface's device, its KKT inverted by K5;
   on the card each tick replays it from a CUDA graph captured at the first
   tick (one copy of its inputs to the card and one of the decision back).

@@ -36,22 +36,24 @@ from ..utils.timing import RepeatedTimer
 
 
 def capture_dq_from_state(cap, nj: int, x, x_ref, gait_table=None, t0=None):
-    """(2, nj) swing-leg joint-reference offsets from the measured lateral
-    error (config.loader.CaptureConfig semantics): rotate the world-frame
-    base-position / CoM-velocity errors into the body frame by the measured
-    yaw, form dq = sign * clip(kp e_y + kv edot_y, +-max_offset), and place
-    it on each leg's hip-roll slot.  x, x_ref (nx,) tensors.
+    """(..., 2, nj) swing-leg joint-reference offsets from the measured
+    lateral error (config.loader.CaptureConfig semantics): rotate the
+    world-frame base-position / CoM-velocity errors into the body frame by
+    the measured yaw, form dq = sign * clip(kp e_y + kv edot_y, +-max_offset),
+    and place it on each leg's hip-roll slot.  x, x_ref (..., nx) tensors
+    (a leading scenario axis for the batched closed loop); t0 a 0-dim
+    tensor shared by the scenarios.
 
     cap.touchdown_sync (with gait_table/t0 supplied): each leg's (e_y,
     edot_y) are LIPM-propagated to that leg's next touchdown
     (GaitTable.next_touchdown_per_leg):
         e(dt) = e cosh(w dt) + (edot/w) sinh(w dt),  w = sqrt(g/z_ref)."""
-    yaw = x[9]
+    yaw = x[..., 9]
     s, c = torch.sin(yaw), torch.cos(yaw)
-    pe = x[6:8] - x_ref[6:8]  # world base-position error
-    ve = x[0:2] - x_ref[0:2]  # world CoM-velocity error (h/m)
-    e_y = -s * pe[0] + c * pe[1]  # body-frame lateral components
-    edot_y = -s * ve[0] + c * ve[1]
+    pe = x[..., 6:8] - x_ref[..., 6:8]  # world base-position error
+    ve = x[..., 0:2] - x_ref[..., 0:2]  # world CoM-velocity error (h/m)
+    e_y = -s * pe[..., 0] + c * pe[..., 1]  # body-frame lateral components
+    edot_y = -s * ve[..., 0] + c * ve[..., 1]
     # soft deadband: exactly zero in nominal locomotion
     dz = lambda v, db: torch.sign(v) * torch.clamp(torch.abs(v) - db, min=0.0)
 
@@ -63,22 +65,24 @@ def capture_dq_from_state(cap, nj: int, x, x_ref, gait_table=None, t0=None):
         )
 
     if getattr(cap, "touchdown_sync", False) and gait_table is not None:
-        w = torch.sqrt(9.81 / torch.clamp(x_ref[8], min=0.3))
+        w = torch.sqrt(9.81 / torch.clamp(x_ref[..., 8], min=0.3))[..., None]
         # per-leg horizon to touchdown, capped at one swing's worth
         dt_td = torch.clamp(gait_table.next_touchdown_per_leg(t0) - t0, 0.0, 0.6)
-        ch, sh = torch.cosh(w * dt_td), torch.sinh(w * dt_td)  # (2,)
-        dq_legs = _dq(e_y * ch + (edot_y / w) * sh, e_y * w * sh + edot_y * ch)  # (2,)
+        ch, sh = torch.cosh(w * dt_td), torch.sinh(w * dt_td)  # (..., 2)
+        e, edot = e_y[..., None], edot_y[..., None]
+        dq_legs = _dq(e * ch + (edot / w) * sh, e * w * sh + edot * ch)  # (..., 2)
     else:
-        dq_legs = _dq(e_y, edot_y).expand(2)
-    out = torch.zeros(2, nj, dtype=x.dtype, device=x.device)
-    out[0, cap.left_index] = dq_legs[0]
-    out[1, cap.right_index] = dq_legs[1]
+        dq_legs = _dq(e_y, edot_y)[..., None].expand(e_y.shape + (2,))
+    out = torch.zeros(e_y.shape + (2, nj), dtype=x.dtype, device=x.device)
+    out[..., 0, cap.left_index] = dq_legs[..., 0]
+    out[..., 1, cap.right_index] = dq_legs[..., 1]
     return out
 
 
 def make_capture_hook(cap, nj: int):
     """(dq_fn, decay, weight_shift): dq_fn(gait, target, t_nodes, x_obs)
-    returns the (2, nj) swing joint-reference offsets, or None when no
+    returns the (2, nj) swing joint-reference offsets ((B, 2, nj) for the
+    observations (B, nx) of a batched target table), or None when no
     captureStepping block is configured."""
 
     def dq_fn(gait, target, t_nodes, x_obs):

@@ -7,10 +7,14 @@ HW rate against wall-clock time, while the MPC worker replans in the
 background (runtime/async_mpc.py).  Simulation tests drive the tick from
 their own sim-time loops instead (sim time != wall time); this runner is
 for real plants and for wall-clock soak tests of the tick pipeline.
+
+The runner times each cycle's read, update and write (``cycle_seconds``,
+the last 100,000 cycles).
 """
 from __future__ import annotations
 
 import time
+from collections import deque
 from typing import Callable
 
 import numpy as np
@@ -42,12 +46,19 @@ class RtControllerRunner:
         self._loop: RtLoop | None = None
         self._t0 = None
         self.ticks = 0
+        # (read, update, write) seconds of each of the last 100,000 cycles
+        self.cycle_seconds: deque[tuple[float, float, float]] = deque(maxlen=100_000)
 
     def _tick(self) -> bool:
+        c0 = time.perf_counter()
         t = time.monotonic() - self._t0
         rbd = self._read()
+        c1 = time.perf_counter()
         cmd = self.ctrl.update(t, rbd)
+        c2 = time.perf_counter()
         self._write(cmd)
+        c3 = time.perf_counter()
+        self.cycle_seconds.append((c1 - c0, c2 - c1, c3 - c2))
         self.ticks += 1
         return not self.ctrl.safe  # True stops the loop
 

@@ -218,34 +218,43 @@ def build_refs(info: CentroidalModelInfo, gait_table, swing_table, target_table,
                dq_swing=None, dq_decay: float | None = None,
                weight_shift: float | None = None) -> NodeRefs:
     """NodeRefs of every interval of the node grid t_nodes (N+1,), with the
-    batch axis sqp_solve takes: fields (1, N, ...).  One batched computation
-    over the nodes (the JAX package vmaps over them).
+    batch axis sqp_solve takes: fields (1, N, ...) for one target table,
+    (B, N, ...) for a batched one (B tables, ``TargetTable`` with a leading
+    scenario axis; the gait, swing tables and the grid are shared).  One
+    batched computation over the nodes and scenarios (the JAX package vmaps
+    over the nodes, and over the scenarios in its batched closed loop).
 
-    dq_swing: optional (2, nj) joint-reference offsets (row 0 = left leg,
-    row 1 = right leg) added to x_nom's joint block at every node where that
-    leg is in swing (the capture-stepping hook, config.loader.CaptureConfig).
-    dq_decay: optional time constant [s]; the offset decays
-    exp(-(t-t0)/tau) along the horizon.  weight_shift: optional amplitude
-    [m] of a phase-locked base-y reference offset toward the single-support
-    stance foot, rotated to world by each node's yaw reference."""
+    dq_swing: optional (2, nj) or (B, 2, nj) joint-reference offsets (row 0 =
+    left leg, row 1 = right leg) added to x_nom's joint block at every node
+    where that leg is in swing (the capture-stepping hook,
+    config.loader.CaptureConfig).  dq_decay: optional time constant [s];
+    the offset decays exp(-(t-t0)/tau) along the horizon.  weight_shift:
+    optional amplitude [m] of a phase-locked base-y reference offset toward
+    the single-support stance foot, rotated to world by each node's yaw
+    reference."""
     t = t_nodes[:-1]
     r = make_node_refs(info, gait_table, swing_table, target_table, t, t_nodes[1:] - t)
-    f = r.contact_flags  # [l_toe, l_heel, r_toe, r_heel]
+    f = r.contact_flags  # (N, 4) [l_toe, l_heel, r_toe, r_heel]
     left, right = torch.maximum(f[:, 0], f[:, 1]), torch.maximum(f[:, 2], f[:, 3])
-    x_nom = r.x_nom
+    x_nom = r.x_nom  # (N, nx) or (B, N, nx)
     if dq_swing is not None:
-        dq = (1.0 - left)[:, None] * dq_swing[0] + (1.0 - right)[:, None] * dq_swing[1]
+        dq = (1.0 - left)[:, None] * dq_swing[..., 0:1, :] + (1.0 - right)[:, None] * dq_swing[..., 1:2, :]
         if dq_decay is not None:
             dq = torch.exp(-torch.clamp(t - t_nodes[0], min=0.0) / dq_decay)[:, None] * dq
-        x_nom = torch.cat([x_nom[:, :12], x_nom[:, 12:] + dq], dim=-1)
+        x_nom = x_nom.expand(torch.broadcast_shapes(x_nom.shape[:-1], dq.shape[:-1]) + x_nom.shape[-1:])
+        x_nom = torch.cat([x_nom[..., :12], x_nom[..., 12:] + dq], dim=-1)
     if weight_shift is not None:
         # +1 left single support, -1 right, 0 double/flight; body +y is
         # toward the left foot, rotated to world by the node's yaw ref
         dy = weight_shift * (left - right)
-        yaw = x_nom[:, 9]
+        yaw = x_nom[..., 9]
         shift = torch.stack([-torch.sin(yaw) * dy, torch.cos(yaw) * dy], dim=-1)
-        x_nom = torch.cat([x_nom[:, :6], x_nom[:, 6:8] + shift, x_nom[:, 8:]], dim=-1)
-    return NodeRefs(*(a[None] for a in r._replace(x_nom=x_nom)))
+        x_nom = torch.cat([x_nom[..., :6], x_nom[..., 6:8] + shift, x_nom[..., 8:]], dim=-1)
+    r = r._replace(x_nom=x_nom)
+    if x_nom.dim() == 2:
+        return NodeRefs(*(a[None] for a in r))
+    lanes = x_nom.shape[0]
+    return NodeRefs(*(a if a is x_nom else a.expand((lanes,) + a.shape) for a in r))
 
 
 def _interp_rows(times, rows, t):

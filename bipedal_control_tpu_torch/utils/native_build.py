@@ -1,12 +1,13 @@
 """Build the host-side C++ of ``native/`` with g++ and load it with ctypes.
 
-The controller's tick runs three small C++ libraries on the CPU (the host
-model, the WBC's ADMM loop and the real-time runtime).  Their sources stay
-where the JAX package reads them (``native/*.cc``); this module compiles
+The controller's tick runs small C++ libraries on the CPU: the host model
+and the real-time runtime, whose sources stay where the JAX package reads
+them (``native/*.cc``), and the port's own host WBC
+(``bipedal_control_tpu_torch/native/host_wbc.cc``).  This module compiles
 them into ``build/host_native/`` at the repository root, one directory per
 source named by a hash of the source and the flags:
 
-    g++ <flags> -shared -fPIC -std=c++17 -o lib<stem>.so native/<stem>.cc
+    g++ <flags> -shared -fPIC -std=c++17 -o lib<stem>.so <dir>/<stem>.cc
 
 A library builds at its first use, never at import.  The compiler writes a
 temporary file that is renamed into place, so two processes may build the
@@ -23,6 +24,7 @@ import threading
 from pathlib import Path
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+PORT_NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host_native"
 CXX = "g++"
 
@@ -31,7 +33,8 @@ _lock = threading.Lock()
 
 
 def load_native(stem: str, flags: tuple[str, ...] = ("-O3",)) -> ctypes.CDLL:
-    """native/<stem>.cc built with ``flags`` and loaded (cached per process)."""
+    """native/<stem>.cc (else the port's native/<stem>.cc) built with
+    ``flags`` and loaded (cached per process)."""
     request = (stem, flags, str(BUILD_DIR), CXX)
     with _lock:
         if request not in _loaded:
@@ -41,6 +44,8 @@ def load_native(stem: str, flags: tuple[str, ...] = ("-O3",)) -> ctypes.CDLL:
 
 def _build(stem: str, flags: tuple[str, ...]) -> Path:
     src = NATIVE_DIR / f"{stem}.cc"
+    if not src.exists():
+        src = PORT_NATIVE_DIR / f"{stem}.cc"
     cmd_flags = (*flags, "-shared", "-fPIC", "-std=c++17")
     h = hashlib.sha256(src.read_bytes())
     h.update(repr(cmd_flags).encode())

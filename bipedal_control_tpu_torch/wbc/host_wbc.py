@@ -9,9 +9,12 @@ wbc/weighted_wbc.py) and its ADMM (wbc/qp.py) on the host, consuming the
 host dynamics (the C++ of native/host_model.cc, or model/host_dynamics.py's
 numpy twin), so a control tick launches nothing on the card.
 
-Backends: ``native=True`` (the default) runs the model quantities and the
-ADMM loop in the C++ of native/ (model/native_model.py, wbc/native_qp.py)
-and raises if they cannot be built; ``native=False`` runs their numpy twins.
+Backends: ``native=True`` (the default) runs the model quantities in the
+C++ of native/ (model/native_model.py) and the whole QP, its task rows, its
+factorization and its ADMM, in the port's native/host_wbc.cc
+(wbc/native_qp.py::NativeWbc), one call each per tick with the GIL
+released, and raises if they cannot be built; ``native=False`` runs their
+numpy twins (compute_wbc_kinematics_np, HostWbc._assemble, solve_qp_np).
 tests/test_torch_host_wbc.py holds both against the JAX package's HostWbc.
 
 Beyond parity with the device WBC, the host solver warm-starts the ADMM
@@ -45,10 +48,12 @@ from ..model.host_model import (
     rotmat_from_zyx_np,
 )
 from ..model.native_model import NativeHostModel
-from .native_qp import admm_iterate_native
+from .native_qp import NativeWbc
 from .tasks import NUM_CONTACTS, WbcTaskConfig
 
 _BIG = 1e20
+# the ADMM's step, proximal weight, relaxation and equality-row rho scale
+RHO, SIGMA, ALPHA, EQ_RHO_SCALE = 0.1, 1e-6, 1.6, 1e3
 
 
 class HostWbcKinematics(NamedTuple):
@@ -127,15 +132,15 @@ def compute_wbc_kinematics_np(hm: HostModel, x_des, u_des, rbd_measured) -> Host
 def solve_qp_np(
     H, g, A, l, u,  # noqa: E741
     iters: int = 120,
-    rho: float = 0.1,
-    sigma: float = 1e-6,
-    alpha: float = 1.6,
-    eq_rho_scale: float = 1e3,
+    rho: float = RHO,
+    sigma: float = SIGMA,
+    alpha: float = ALPHA,
+    eq_rho_scale: float = EQ_RHO_SCALE,
     warm: HostQpState | None = None,
-    native: bool = True,
 ):
-    """wbc/qp.py::solve_qp twin (OSQP-style ADMM, per-row equality rho); the
-    iteration loop runs in native/host_qp.cc, or in numpy with native=False.
+    """wbc/qp.py::solve_qp twin (OSQP-style ADMM, per-row equality rho) in
+    numpy: the reference of native/host_wbc.cc's solve and HostWbc's
+    native=False path.
 
     The KKT solve is done through its SPD Schur complement
     P = H + sigma I + A^T diag(rho) A (n x n: 38 for H1, 42 for G1) instead of the
@@ -157,21 +162,15 @@ def solve_qp_np(
     else:
         x, z, y = warm.x.copy(), warm.z.copy(), warm.y.copy()
     inv_rho = 1.0 / rho_vec
-    if native:
-        admm_iterate_native(
-            P_inv, np.ascontiguousarray(A), rho_AT, np.ascontiguousarray(g), np.ascontiguousarray(l),
-            np.ascontiguousarray(u), rho_vec, inv_rho, sigma, alpha, iters, x, z, y,
-        )
-    else:
-        for _ in range(iters):
-            b_rhs = z - y * inv_rho
-            x_t = P_inv @ (sigma * x - g + rho_AT @ b_rhs)
-            nu = rho_vec * (A @ x_t - b_rhs)
-            z_t = z + (nu - y) * inv_rho
-            x = alpha * x_t + (1 - alpha) * x
-            z_mix = alpha * z_t + (1 - alpha) * z
-            z = np.clip(z_mix + y * inv_rho, l, u)
-            y = y + rho_vec * (z_mix - z)
+    for _ in range(iters):
+        b_rhs = z - y * inv_rho
+        x_t = P_inv @ (sigma * x - g + rho_AT @ b_rhs)
+        nu = rho_vec * (A @ x_t - b_rhs)
+        z_t = z + (nu - y) * inv_rho
+        x = alpha * x_t + (1 - alpha) * x
+        z_mix = alpha * z_t + (1 - alpha) * z
+        z = np.clip(z_mix + y * inv_rho, l, u)
+        y = y + rho_vec * (z_mix - z)
 
     ax = A @ x
     primal = float(np.max(np.abs(ax - np.clip(ax, l, u))))
@@ -182,8 +181,8 @@ def solve_qp_np(
 class HostWbc:
     """Stateful host-side WeightedWbc: constant task rows precomputed once,
     per-tick rows assembled in place, ADMM warm-started from the last tick.
-    ``backend`` names what runs the model quantities and the ADMM loop:
-    "native" (C++) or "numpy" (native=False).
+    ``backend`` names what runs the model quantities and the QP: "native"
+    (C++) or "numpy" (native=False).
     """
 
     def __init__(
@@ -235,6 +234,9 @@ class HostWbc:
                 np.full(self.nfc, cfg.force_reg),
                 np.full(nj, cfg.torque_reg),
             ]
+        )
+        self.native_wbc = (
+            NativeWbc(nj, cfg, self._reg, RHO, SIGMA, ALPHA, EQ_RHO_SCALE) if native else None
         )
 
     # ------------------------------------------------------------------
@@ -335,11 +337,12 @@ class HostWbc:
     # ------------------------------------------------------------------
     def update(self, x_des, u_des, rbd_measured, contact_flags, warm: bool = True) -> HostWbcResult:
         """One tick: kinematics -> task rows -> ADMM -> torque."""
-        if self.native_model is not None:
+        native = self.native_wbc is not None
+        if native:
+            u_des = np.ascontiguousarray(u_des, dtype=np.float64)
             kin = self.native_model.wbc_kinematics(x_des, u_des, rbd_measured)
         else:
             kin = compute_wbc_kinematics_np(self.hm, x_des, u_des, rbd_measured)
-        H, g, A, l, u = self._assemble(kin, contact_flags)
         # Cold-start on a CONTACT-STRUCTURE change: the warm duals belong to
         # the previous active set (stance zero-accel rows vs swing-task
         # rows flip with the flags), and the short warm iteration budget
@@ -352,7 +355,12 @@ class HostWbc:
         self._last_flags = flags_key
         state0 = self._state if warm else None
         iters = self.warm_iters if state0 is not None else self.qp_iters
-        state, primal, dual = solve_qp_np(H, g, A, l, u, iters=iters, warm=state0, native=self.native)
+        if native:
+            (x, z, y), primal, dual = self.native_wbc.solve(kin, u_des, contact_flags, iters, warm=state0)
+            state = HostQpState(x=x, z=z, y=y)
+        else:
+            H, g, A, l, u = self._assemble(kin, contact_flags)  # noqa: E741
+            state, primal, dual = solve_qp_np(H, g, A, l, u, iters=iters, warm=state0)
         if np.all(np.isfinite(state.x)):
             self._state = state
         else:

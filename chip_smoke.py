@@ -72,7 +72,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      worker stopped under torch.profiler (no device activity allowed),
      then under RtControllerRunner (the native RtLoop at 400 Hz) for 1.0 s:
      the tick's time, the policy's staleness, the worker's solve time and
-     the loop's cycles (at least 300 ticks written) and overruns; (c) 20
+     the loop's cycles (at least 300 ticks written), overruns and each
+     cycle's read, update and write times; (c) 20
      synchronous ticks in float64, production against the all-plain
      configuration on the same replayed measurements
      (pos_des, vel_des, tau_ff 1e-5 relative to max(1, max|ref|), planned
@@ -117,11 +118,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      float64, production on the card against the all-plain configuration
      on the CPU with the same sensors (pos_des, vel_des, tau_ff and the
      filter's state 1e-5 relative to max(1, max|ref|), planned flags equal);
+ 14. the batched closed loop (sim/batch_loop.py: replan -> policy -> WBC ->
+     PD -> physics over a batch of scenarios, each replan and each tick a
+     CUDA-graph replay) on G1 at tools/scenario_survival_torch.py's settings
+     (dt 0.02: N = 50; one SQP iteration; five line-search candidates):
+     (a) float64, 3 lanes (two randomized, seed 0, one pitched 1.7 rad past
+     the fall guard), 0.06 s, trot from 0.02 s, cmd_vel (0.3, 0, 0, 0.2)
+     with the trim and the heading hold: production on the card against
+     all plain on the CPU, final q, v, anchors, base_z_min, tilt_max and
+     defect_last within 1e-5 relative to max(1, max|ref|), fell equal;
+     then the same episode with each step in a profiler window of its
+     own: K1, K2+K3 and K4 once in every solve, K5 once in every tick;
+     (b) float32, B = 64 randomized at scale 1.0 (seed 7), trot from 0.2 s,
+     cmd_vel 0.3 m/s, 1.0 s, run twice (the first runs each step op by op
+     and captures): every lane finite at the end; fell, upright and
+     progressed fractions, wall time per episode second, scenario-seconds
+     per second, each graph's replay time, its device activities and busy
+     share;
 then a JSON line of G1's solve and loop results, a JSON line of the
-controller's, a JSON line of phase 13's, a JSON line of per-kernel results
-(with each model kernel's G1 figures under "g1", and K5's at the device
-WBC's shapes, with its launches per controller tick) and, last, the device
-JSON line.
+controller's, a JSON line of phase 13's, a JSON line of phase 14's, a JSON
+line of per-kernel results (with each model kernel's G1 figures under
+"g1", K5's at the device WBC's shapes, with its launches per controller
+tick, and every kernel's launches per cascade replan and tick) and, last,
+the device JSON line.
 With --profile, phases 1-2 are followed by torch.profiler over warm B=256
 float32 solves of the production and "structured" configurations (device
 busy share, device time by kernel, the host's synchronising runtime calls).
@@ -129,7 +148,7 @@ busy share, device time by kernel, the host's synchronising runtime calls).
 The robot of phases 3-9 is H1-shaped (10 leg joints, 4 sole contacts, upper
 body welded into the base, ~47 kg): nx = nu = 22 and ne = 16 as for H1.
 When $BIPEDAL_ASSETS holds the H1 URDF, H1 itself is loaded instead.  The
-robot of phases 10-11 is the synthetic G1-shaped biped of
+robot of phases 10-14 is the synthetic G1-shaped biped of
 tests/data/g1_shaped_biped.urdf (nx = nu = 24), or G1's own URDF when
 $BIPEDAL_ASSETS holds it.  Weights,
 references and initial states are made from fixed numpy seeds.  Each
@@ -159,9 +178,9 @@ from bipedal_control_tpu_torch.model.centroidal import (
     make_info,
     rbd_state_from_centroidal,
 )
-from bipedal_control_tpu_torch.model.host_dynamics import generalized_velocity_from_state_input_np
 from bipedal_control_tpu_torch.model.host_model import euler_rate_map_zyx_np, make_host_model, rotmat_from_zyx_np
 from bipedal_control_tpu_torch.model.kinematics import frame_jacobians
+from bipedal_control_tpu_torch.model.native_model import NativeHostModel
 from bipedal_control_tpu_torch.model.robot_model import from_description
 from bipedal_control_tpu_torch.model.urdf import JOINT_REVOLUTE, RobotDescription, load_urdf
 from bipedal_control_tpu_torch.ocp.linearize import linearize_node_structured
@@ -1083,14 +1102,13 @@ KERNEL_NAMES = {"linearize": "linearize_kernel", "riccati": "riccati_kernel", "m
                 "gauss_jordan": "gj_kernel"}
 
 
-def profile_counts(fn, cpu: bool = True) -> tuple[int, int, dict]:
-    """(device activities, host synchronisations, kernel runs) of one call
-    of fn (torch.profiler): the kernels, copies and fills the device ran;
-    the host's cudaStreamSynchronize and synchronous cudaMemcpy calls (the
-    profiler's own closing cudaDeviceSynchronize is not counted); and how
-    many times the device ran K1, K2+K3, K4 and K5, read from the kernel
-    events' names, so the kernels a CUDA graph's replay ran are counted
-    too.  cpu=False traces the device's activities only (a long window)."""
+def trace(fn, cpu: bool = True):
+    """(the device's activities, the host's synchronising calls) of one
+    call of fn under torch.profiler: the kernels, copies and fills the
+    device ran (events), and the host's cudaStreamSynchronize and
+    synchronous cudaMemcpy calls (the profiler's own closing
+    cudaDeviceSynchronize is not counted).  cpu=False traces the device's
+    activities only (a long window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1100,10 +1118,22 @@ def profile_counts(fn, cpu: bool = True) -> tuple[int, int, dict]:
         fn()
         torch.cuda.synchronize()
     events = prof.events()
-    device = [e.name for e in events if e.device_type == DeviceType.CUDA]
     syncs = sum(1 for e in events if e.name in ("cudaStreamSynchronize", "cudaMemcpy"))
-    ran = {k: sum(1 for name in device if re.search(rf"\b{n}\b", name)) for k, n in KERNEL_NAMES.items()}
-    return len(device), syncs, ran
+    return [e for e in events if e.device_type == DeviceType.CUDA], syncs
+
+
+def kernel_runs(device_events) -> dict:
+    """How many times the device ran K1, K2+K3, K4 and K5, read from the
+    kernel events' names, so the kernels a CUDA graph's replay ran count
+    too."""
+    return {k: sum(1 for e in device_events if re.search(rf"\b{n}\b", e.name)) for k, n in KERNEL_NAMES.items()}
+
+
+def profile_counts(fn, cpu: bool = True) -> tuple[int, int, dict]:
+    """(device activities, host synchronisations, kernel runs) of one call
+    of fn (:func:`trace`, :func:`kernel_runs`)."""
+    device, syncs = trace(fn, cpu)
+    return len(device), syncs, kernel_runs(device)
 
 
 def count_device_activities(fn) -> int:
@@ -1224,32 +1254,34 @@ def standing_rbd(iface) -> np.ndarray:
 
 
 class Replay:
-    """Kinematic replay plant (the port has no simulator yet): the first
-    measurement is the standing rbd state; every later one is the rbd state
-    of the policy point (x_star, u_fb) the controller tracked on its
+    """Kinematic replay plant (the port has no simulator on the host): the
+    first measurement is the standing rbd state; every later one is the rbd
+    state of the policy point (x_star, u_fb) the controller tracked on its
     previous tick, computed on the host in float64, so the plant launches
-    nothing on the card.  The conversion runs in numpy on the controller's
-    host model (model/host_dynamics.py), ~0.1 ms: the torch version,
-    model/centroidal.py::rbd_state_from_centroidal, takes ~2-4 ms of torch
-    CPU dispatch per state, more than a 400 Hz tick, and would hold the GIL
-    against the tick and the MPC worker.  With check=True every measurement
-    is also computed by the torch version and the largest difference kept
-    (``check_err``)."""
+    nothing on the card.  The conversion's generalized velocity is the
+    desired side of the C++ host model's WBC kinematics
+    (model/native_model.py, an instance of the plant's own), ~0.17 ms with
+    the GIL released: the numpy twin (model/host_dynamics.py) takes ~0.5 ms
+    of Python per tick, which under the native RtLoop cost phase 12(b) ~50
+    of its 400 cycles, and the torch version,
+    model/centroidal.py::rbd_state_from_centroidal, ~2-4 ms of torch CPU
+    dispatch.  With check=True every measurement is also computed by the
+    torch version and the largest difference kept (``check_err``)."""
 
     def __init__(self, iface, check: bool = False):
         self.model = iface.model.to(device="cpu", dtype=torch.float64)
         self.info = iface.info
-        self.hm = make_host_model(iface.model, iface.info)
+        self.nm = NativeHostModel(make_host_model(iface.model, iface.info))
         self.check = check
         self.check_err = 0.0
         self.rbd = standing_rbd(iface)
-        self.seconds: list[float] = []  # host time of each numpy conversion
+        self.seconds: list[float] = []  # host time of each conversion
 
     def measure(self, ctrl) -> np.ndarray:
         if ctrl.last_policy is not None:
             t0 = time.perf_counter()
             x, u = ctrl.last_policy
-            v = generalized_velocity_from_state_input_np(self.hm, x, u)
+            v = self.nm.wbc_kinematics(x, u, self.rbd).v_d
             omega = euler_rate_map_zyx_np(x[9:12]) @ v[3:6]
             self.rbd = np.concatenate([x[9:12], x[6:9], x[12:], omega, v[0:3], v[6:]])
             self.seconds.append(time.perf_counter() - t0)
@@ -1368,7 +1400,7 @@ def sync_run(iface32, torque: TorqueReadings, check_replay: bool):
         torque.check(cmd, ctrl.wbc_primal_residual, f"sync tick {k}")
         z_dev = max(z_dev, z_offset(rbd))
     require(z_dev <= 0.02, f"sync controller: replayed base z left 0.665 by {z_dev:.4f} m (bar 0.02)")
-    require(plant.check_err <= 1e-10, f"replay: the numpy conversion is {plant.check_err:.3e} from "
+    require(plant.check_err <= 1e-10, f"replay: the native conversion is {plant.check_err:.3e} from "
             "rbd_state_from_centroidal (bar 1e-10)")
     require(len(replans) == 50, f"sync controller: {len(replans)} replans (50 expected)")
     return ctrl, plant, replans, np.asarray(replan_tick), z_dev
@@ -1411,7 +1443,7 @@ def phase_controller(device, iface) -> dict:
                    "device_activities_replan_tick": replan_activities, "host_syncs_replan_tick": replan_syncs,
                    "max |replayed z - 0.665|": z_dev, "kernel_runs_per_replan": {k: v / n_replans for k, v in ran.items()},
                    "wrapper_launches": counts, "backends": ctrl.backends, "mpc_timer": rep["mpc"],
-                   "torque": torque.summary(), "replay_numpy_vs_torch_max_abs": check_err}
+                   "torque": torque.summary(), "replay_native_vs_torch_max_abs": check_err}
     s = out["sync"]
     print(f"[12 controller] sync float32, 400 ticks, {n_replans} replans, backends {ctrl.backends}: the device ran "
           f"{ran} (profiler) in the traced run, the wrappers launched {counts} (each kind's first replan; the "
@@ -1423,7 +1455,7 @@ def phase_controller(device, iface) -> dict:
           f"{s['replan_cuda_events']['p50_ms']:.3f} / p99 {s['replan_cuda_events']['p99_ms']:.3f} ms; per tick "
           f"without replan {activities / 5:g} device activities, {syncs / 5:g} host syncs (replan tick "
           f"{replan_activities}, {replan_syncs}); max |replayed z - 0.665| {z_dev:.4f} m; both runs: {torque}; "
-          f"replay numpy vs rbd_state_from_centroidal max abs {check_err:.2e}")
+          f"replay (native) vs rbd_state_from_centroidal max abs {check_err:.2e}")
     # (b) asynchronous: plain Python on a 2.5 ms wall grid, then the paused
     # window, then the native RtLoop
     ctrl = trotting_controller(iface32, mpc_async=True)
@@ -1469,6 +1501,7 @@ def phase_controller(device, iface) -> dict:
     torque = TorqueReadings(limits)
     ctrl.starting(0.0, plant.rbd)
     cmds = []  # (command, the tick's QP primal residual), written on the loop's thread after each tick
+
     runner = RtControllerRunner(ctrl, read=lambda: plant.measure(ctrl),
                                 write=lambda cmd: cmds.append((cmd, ctrl.wbc_primal_residual)), frequency_hz=400.0,
                                 priority=0)
@@ -1481,25 +1514,31 @@ def phase_controller(device, iface) -> dict:
         ctrl.stop()
     require(not runner.failed, f"RtControllerRunner: the tick raised {runner.exception!r}")
     require(ctrl.safe and not ctrl.async_mpc.failed, "RtControllerRunner: unsafe or the worker failed")
+    cycle = np.asarray(runner.cycle_seconds)  # (cycles, 3): read, update, write
+    parts = {name: percentiles(cycle[:, i]) for i, name in enumerate(("read", "update", "write"))}
+    parts["cycle"] = percentiles(cycle.sum(axis=1))
+    rep = ctrl.report()
+    out["rt_loop"] = {"loop": loop_stats, "ticks_written": len(cmds), "tick": rep["tick"],
+                      "policy_staleness_s": rep["policy_staleness_s"], "worker_solve": rep["mpc"],
+                      "replans_published": rep["mpc_solves"], "replay_plant": percentiles(plant.seconds),
+                      "cycle_parts": parts}
+    r = out["rt_loop"]
+    print(f"[12 controller] RtControllerRunner 400 Hz, priority 0, 1.0 s: {loop_stats['cycles']} cycles (a cycle is "
+          f"the replay plant's read, the tick and the write; at least 300), "
+          f"{loop_stats['overruns']} overruns, max cycle {loop_stats['max_cycle_ns'] / 1e6:.3f} ms; per cycle (ms p50 "
+          f"/ p99 / max) " + "; ".join(f"{k} {v['p50_ms']:.3f} / {v['p99_ms']:.3f} / {v['max_ms']:.3f}"
+                                      for k, v in parts.items())
+          + f"; tick (update's timer) p50 {r['tick']['p50_ms']:.3f} / p99 {r['tick']['p99_ms']:.3f} ms; replay plant "
+          f"p50 {r['replay_plant']['p50_ms']:.3f} / p99 {r['replay_plant']['p99_ms']:.3f} ms; "
+          f"staleness p50 {r['policy_staleness_s']['p50'] * 1e3:.2f} / p99 {r['policy_staleness_s']['p99'] * 1e3:.2f} "
+          f"ms; worker solve p50 {r['worker_solve']['p50_ms']:.3f} ms; {r['replans_published']} replans published")
     require(len(cmds) >= 300, f"RtControllerRunner: {len(cmds)} ticks in 1.0 s at 400 Hz (at least 300)")
     require(ctrl.async_mpc.solve_count >= 40,
             f"RtControllerRunner: {ctrl.async_mpc.solve_count} replans published (at least 40)")
     for k, (cmd, residual) in enumerate(cmds):
         torque.check(cmd, residual, f"rt tick {k}")
-    rep = ctrl.report()
-    out["rt_loop"] = {"loop": loop_stats, "ticks_written": len(cmds), "tick": rep["tick"],
-                      "policy_staleness_s": rep["policy_staleness_s"], "worker_solve": rep["mpc"],
-                      "replans_published": rep["mpc_solves"], "replay_plant": percentiles(plant.seconds),
-                      "torque": torque.summary()}
-    r = out["rt_loop"]
-    print(f"[12 controller] RtControllerRunner 400 Hz, priority 0, 1.0 s: {loop_stats['cycles']} cycles (a cycle is "
-          f"the replay plant's read, the tick and the write; at least 300), {loop_stats['overruns']} overruns, max "
-          f"cycle {loop_stats['max_cycle_ns'] / 1e6:.3f} ms; tick p50 {r['tick']['p50_ms']:.3f} / p99 "
-          f"{r['tick']['p99_ms']:.3f} / max {r['tick']['max_ms']:.3f} ms; replay plant p50 "
-          f"{r['replay_plant']['p50_ms']:.3f} / p99 {r['replay_plant']['p99_ms']:.3f} ms; staleness p50 "
-          f"{r['policy_staleness_s']['p50'] * 1e3:.2f} / p99 {r['policy_staleness_s']['p99'] * 1e3:.2f} ms; "
-          f"worker solve p50 {r['worker_solve']['p50_ms']:.3f} ms; {r['replans_published']} replans published; "
-          f"{torque}")
+    r["torque"] = torque.summary()
+    print(f"[12 controller] RtControllerRunner: {torque}")
     # (c) float64 parity, production against plain
     par = controller_parity(iface)
     print(f"[12 controller] float64 20 sync ticks production vs plain: "
@@ -1943,6 +1982,223 @@ def phase_device_controller(device, iface) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ the batched closed loop (cascade)
+# phase 14(a)'s episode: trot spliced in at 0.02 s, cmd_vel with the trim and
+# the heading hold (tests/test_torch_batch_loop.py's, at the survival settings)
+CASCADE_EPISODE = dict(gait="trot", gait_at=0.02, cmd_vel=(0.3, 0.0, 0.0, 0.2), cmd_vel_ki=0.5, cmd_vel_kyaw=0.8,
+                       cmd_vel_yaw_delay=0.02)
+CASCADE_FIELDS = ("q", "v", "anchor", "base_z_min", "tilt_max", "defect_last")
+FALLEN_PITCH = 1.7  # rad, beyond BatchLoopConfig.fall_tilt (1.5)
+
+
+def cascade_iface(iface, config: str, device, dtype):
+    """G1's interface at tools/scenario_survival_torch.py's settings (dt
+    0.02: N = 50; one SQP iteration; the task's five line-search
+    candidates) with the configuration's backends, on device in dtype."""
+    linearize, riccati, merit = CONFIGS[config]
+    iface = iface.to(device=device, dtype=dtype)
+    return dataclasses.replace(iface, settings=dataclasses.replace(
+        iface.settings, dt=0.02, sqp_iterations=1, linesearch_alphas=OcpSettings().linesearch_alphas,
+        linearize=linearize, riccati=riccati, merit=merit))
+
+
+def np_rel_err(got, ref) -> float:
+    """max |got - ref| / max(1, max |ref|) of numpy arrays."""
+    return float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
+
+
+def cascade_fields(res) -> dict:
+    """A BatchLoopResult's compared fields as float64 numpy."""
+    st = res.final_state
+    named = {"q": st.q, "v": st.v, "anchor": st.anchor, "base_z_min": res.base_z_min, "tilt_max": res.tilt_max,
+             "defect_last": res.defect_last}
+    return {k: v.to(device="cpu", dtype=torch.float64).numpy() for k, v in named.items()}
+
+
+def device_profile(fn) -> dict:
+    """One call of fn traced on the device only: its activities, the runs
+    of K1, K2+K3, K4 and K5, the activities' summed durations (busy) and
+    the span from the first one's start to the last one's end, in ms."""
+    dev, _ = trace(fn, cpu=False)
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3 if dev else 0.0
+    return {"activities": len(dev), "ran": kernel_runs(dev), "busy_ms": busy, "span_ms": span}
+
+
+def profile_episode(loop, X) -> dict:
+    """One episode of loop, each step (the cold solve, every replan, every
+    tick) in a profiler window of its own (a window of ten ticks, ~10^5
+    activities, has dropped kernel records: phase 13): the device's kernel
+    runs and activities per step, held to K1, K2+K3 and K4 once in every
+    solve and K5 never, K5 once in every tick and the others never."""
+    box = [None]
+
+    def step(f):
+        prof = device_profile(lambda: box.__setitem__(0, f()))
+        return prof, box[0]
+
+    solves, ticks = [], []
+    prof, state = step(lambda: loop.begin(X))
+    solves.append(prof)
+    for k in range(loop.n_replans):
+        prof, state = step(lambda: loop.replan(k, state))
+        solves.append(prof)
+        for j in range(loop.n_ticks):
+            prof, state = step(lambda: loop.tick(k, j, state))
+            ticks.append(prof)
+    model = ("linearize", "riccati", "merit")
+    require(all(all(p["ran"][k] == 1 for k in model) and p["ran"]["gauss_jordan"] == 0 for p in solves),
+            f"cascade: every solve must run K1, K2+K3 and K4 once and K5 never; the profiler saw "
+            f"{[p['ran'] for p in solves]}")
+    require(all(p["ran"]["gauss_jordan"] == 1 and all(p["ran"][k] == 0 for k in model) for p in ticks),
+            f"cascade: every tick must run K5 once and no model kernel; the profiler saw "
+            f"{[p['ran'] for p in ticks if p['ran']['gauss_jordan'] != 1]}")
+    per = lambda profs, key: float(np.mean([p["ran"][key] for p in profs]))
+    return {"solves": len(solves), "ticks": len(ticks),
+            "launches_per_replan": {k: per(solves, k) for k in KERNEL_NAMES},
+            "launches_per_tick": {k: per(ticks, k) for k in KERNEL_NAMES},
+            "device_activities_per_replan": float(np.mean([p["activities"] for p in solves[1:]])),
+            "device_activities_per_tick": float(np.mean([p["activities"] for p in ticks])),
+            "tick_busy_ms": float(np.mean([p["busy_ms"] for p in ticks])),
+            "tick_span_ms": float(np.mean([p["span_ms"] for p in ticks])),
+            "replan_busy_ms": float(np.mean([p["busy_ms"] for p in solves[1:]])),
+            "replan_span_ms": float(np.mean([p["span_ms"] for p in solves[1:]])),
+            "result": state}
+
+
+def step_times_ms(loop, state, reps: int = 10) -> dict:
+    """CUDA-event times of the replan's and the tick's graph replays (input
+    copies, replay, output copies) from one state, reps of each."""
+    out = {}
+    for name, call in (("replan", lambda: loop.replan(1, state)), ("tick", lambda: loop.tick(1, 3, state))):
+        call()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            call()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out[name] = ev[0].elapsed_time(ev[1]) / reps
+    return out
+
+
+def phase_cascade(device, g1, batch: int = 64, duration: float = 1.0) -> dict:
+    """Phase 14: the batched closed loop (sim/batch_loop.py) on G1.
+
+    (a) float64, production on the card against the all-plain
+    configuration on the CPU, 3 lanes (two randomized, seed 0, and one
+    pitched past the fall guard), 0.06 s, CASCADE_EPISODE; then the same
+    episode with every step under the profiler.
+    (b) float32 production, B = batch randomized at scale 1.0 (seed 7),
+    trot from 0.2 s, cmd_vel 0.3 m/s, for duration s (64 and 1.0 s): timed,
+    every lane finite at the end."""
+    from bipedal_control_tpu_torch.sim.batch_loop import (
+        BatchLoopConfig,
+        make_batched_closed_loop,
+        randomized_initial_states,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+    card = cascade_iface(g1, "production", device, torch.float64)
+    X = np.concatenate([randomized_initial_states(card, 2, seed=0), np.asarray(card.initial_state)[None]])
+    X[2, 10] = FALLEN_PITCH
+    reset_launches()
+    loop = make_batched_closed_loop(card, BatchLoopConfig(duration=0.06), **CASCADE_EPISODE)
+    got_res = loop(X)
+    fell = got_res.fell.cpu().numpy()
+    got = cascade_fields(got_res)
+    counts = read_launches()
+    require(all(counts[k] >= 1 for k in KERNEL_NAMES),
+            f"cascade: a kernel's wrapper launched it no time in the episode: {counts}")
+    t0 = time.perf_counter()
+    cpu_loop = make_batched_closed_loop(cascade_iface(g1, "plain", "cpu", torch.float64),
+                                        BatchLoopConfig(duration=0.06), device="cpu", **CASCADE_EPISODE)
+    want_res = cpu_loop(X)
+    cpu_s = time.perf_counter() - t0
+    want = cascade_fields(want_res)
+    errs = {name: np_rel_err(got[name], want[name]) for name in CASCADE_FIELDS}
+    print(f"[14 cascade] float64 3 lanes, 0.06 s (N = {loop.num_nodes - 1}, {loop.n_replans} replans of "
+          f"{loop.n_ticks} ticks of {loop.n_sub} substeps), production on the card vs all plain on the CPU "
+          f"({cpu_s:.1f} s): " + "; ".join(f"{n} {errs[n]:.2e}" for n in CASCADE_FIELDS) + " (bar 1e-5)"
+          + f"; fell {fell.tolist()} vs {want_res.fell.numpy().tolist()}; the wrappers launched {counts}")
+    require(np.array_equal(fell, want_res.fell.numpy()) and fell.tolist() == [False, False, True],
+            f"cascade f64: fell {fell.tolist()} vs the plain CPU run's {want_res.fell.numpy().tolist()}")
+    require(all(errs[n] <= 1e-5 for n in CASCADE_FIELDS), f"cascade f64 parity failed: {errs} (bar 1e-5)")
+    prof = profile_episode(loop, X)
+    replayed = cascade_fields(loop.result(prof.pop("result")))
+    replay_err = max(np_rel_err(replayed[n], got[n]) for n in CASCADE_FIELDS)
+    print(f"[14 cascade] float64 episode, each step profiled alone: kernel runs per replan "
+          f"{prof['launches_per_replan']} (of {prof['solves']} solves), per tick {prof['launches_per_tick']} (of "
+          f"{prof['ticks']} ticks); device activities per replan {prof['device_activities_per_replan']:.0f}, per "
+          f"tick {prof['device_activities_per_tick']:.0f}; its result vs the first episode's {replay_err:.1e}")
+    out["parity_f64"] = {"errors": errs, "fell": fell.tolist(),
+                         "wrapper_launches": counts, "cpu_plain_s": cpu_s, "profile": prof,
+                         "profiled_vs_first_episode": replay_err}
+
+    # (b) the survival configuration, timed
+    iface32 = cascade_iface(g1, "production", device, torch.float32)
+    B = batch
+    loop = make_batched_closed_loop(iface32, BatchLoopConfig(duration=duration), gait="trot", gait_at=0.2,
+                                    cmd_vel=(0.3, 0.0, 0.0, 0.0))
+    X = randomized_initial_states(iface32, B, seed=7, scale=1.0)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = loop(X)
+    q = res.final_state.q.double().cpu().numpy()
+    first_s = time.perf_counter() - t0
+    counts = read_launches()
+    t0 = time.perf_counter()
+    res = loop(X)
+    final = cascade_fields(res)
+    wall = time.perf_counter() - t0
+    q, tilt, fell = final["q"], final["tilt_max"], res.fell.cpu().numpy()
+    finite = np.array([all(np.isfinite(final[k][b]).all() for k in ("q", "v", "anchor")) for b in range(B)])
+    z_floor = 0.82 * float(iface32.task.com_height)
+    upright = finite & (q[:, 2] > z_floor) & (tilt < 0.8)
+    progressed = finite & (q[:, 0] > 0.3 * 0.3 * duration)
+    state = loop.begin(X)
+    state = loop.replan(0, state)
+    times = step_times_ms(loop, state)
+    replan_prof = device_profile(lambda: loop.replan(1, state))
+    tick_prof = device_profile(lambda: loop.tick(1, 3, state))
+    idle = 1.0 - tick_prof["busy_ms"] / max(tick_prof["span_ms"], 1e-9)
+    busy_vs_replay = tick_prof["busy_ms"] / max(times["tick"], 1e-9)
+    out["survival_f32"] = {
+        "batch": B, "duration_s": duration, "first_episode_s": first_s, "episode_s": wall,
+        "wall_s_per_episode_s": wall / duration, "scenario_s_per_s": B * duration / wall,
+        "finite_frac": float(finite.mean()), "fell_frac": float(fell.mean()), "upright_frac": float(upright.mean()),
+        "progressed_frac": float(progressed.mean()), "z_final_mean": float(q[finite, 2].mean()),
+        "x_final_mean": float(q[finite, 0].mean()), "wrapper_launches_first_episode": counts,
+        "replan_replay_ms": times["replan"], "tick_replay_ms": times["tick"],
+        "device_activities_per_replan": replan_prof["activities"],
+        "device_activities_per_tick": tick_prof["activities"],
+        "tick_busy_ms": tick_prof["busy_ms"], "tick_span_ms": tick_prof["span_ms"], "tick_idle_share_traced": idle,
+        "tick_busy_traced_over_replay": busy_vs_replay,
+        "us_per_tick_activity": 1e3 * times["tick"] / tick_prof["activities"],
+        "replan_busy_ms": replan_prof["busy_ms"], "replan_span_ms": replan_prof["span_ms"],
+        "kernel_runs_replan": replan_prof["ran"], "kernel_runs_tick": tick_prof["ran"]}
+    v = out["survival_f32"]
+    print(f"[14 cascade] float32 B = {B}, {duration} s (trot from 0.2 s, cmd_vel 0.3 m/s, scale 1.0, seed 7): "
+          f"episode {wall:.3f} s ({v['wall_s_per_episode_s']:.3f} s per episode second, "
+          f"{v['scenario_s_per_s']:.2f} scenario-seconds per second; the first, op by op and capturing, "
+          f"{first_s:.3f} s); finite {v['finite_frac']:.3f}, fell {v['fell_frac']:.3f}, upright "
+          f"{v['upright_frac']:.3f}, progressed {v['progressed_frac']:.3f} (final z mean {v['z_final_mean']:.4f}, x "
+          f"mean {v['x_final_mean']:.4f}); replay of the replan graph {times['replan']:.3f} ms "
+          f"({replan_prof['activities']} device activities, busy {replan_prof['busy_ms']:.3f} of "
+          f"{replan_prof['span_ms']:.3f} ms), of the tick graph {times['tick']:.3f} ms ({tick_prof['activities']} "
+          f"activities, {v['us_per_tick_activity']:.3f} us each; traced: busy {tick_prof['busy_ms']:.3f} of "
+          f"{tick_prof['span_ms']:.3f} ms, idle {idle:.1%}; the traced busy time is {busy_vs_replay:.2f} x the "
+          f"untraced replay's); the "
+          f"wrappers launched {counts} in the first episode")
+    require(bool(finite.all()), f"cascade f32: {int((~finite).sum())} of {B} lanes not finite at the end")
+    require(all(counts[k] >= 1 for k in KERNEL_NAMES), f"cascade f32: a wrapper launched its kernel no time: {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[14 cascade] phase wall {out['phase_s']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
@@ -2003,6 +2259,8 @@ def main():
     wbc_k5 = phase_wbc_kernel(device, libs["gauss_jordan"], g1)
     wbc_batch = phase_wbc_batch(device, g1)
     dev_ctl = phase_device_controller(device, g1)
+    cascade = phase_cascade(device, g1)
+    per_cascade = cascade["parity_f64"]["profile"]
     per_replan = ctl["sync"]["kernel_runs_per_replan"]
     counts = runs[0]["launches"]  # the first production run at B=256: 10 solves
     g1_counts = g1_res["main"]["launches"]  # G1's B=256 production run: 10 solves
@@ -2011,21 +2269,30 @@ def main():
         dict(kernel_entry("whole-node linearization (K1)", src + "linearize.cu",
                           "bipedal_control_tpu/ops/pallas_linearize_kernel.py:493", counts["linearize"], lin),
              registers=lin["registers"], g1=g1_entry(g1_res["linearize"], g1_counts["linearize"]),
-             launches_per_controller_replan=per_replan["linearize"]),
+             launches_per_controller_replan=per_replan["linearize"],
+             launches_per_cascade_replan=per_cascade["launches_per_replan"]["linearize"],
+             launches_per_cascade_tick=per_cascade["launches_per_tick"]["linearize"]),
         dict(kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
                           src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
              b1_ms=ric["b1_ms"], registers=ric["registers"], g1=g1_entry(g1_res["riccati"], g1_counts["riccati"]),
-             launches_per_controller_replan=per_replan["riccati"]),
+             launches_per_controller_replan=per_replan["riccati"],
+             launches_per_cascade_replan=per_cascade["launches_per_replan"]["riccati"],
+             launches_per_cascade_tick=per_cascade["launches_per_tick"]["riccati"]),
         dict(kernel_entry("merit sums (K4)", src + "merit.cu", "bipedal_control_tpu/ops/pallas_merit.py:253",
                           counts["merit"], mer),
              registers=mer["registers"], g1=g1_entry(g1_res["merit"], g1_counts["merit"]),
-             launches_per_controller_replan=per_replan["merit"]),
-        k5_entry(wbc_k5, gj, dev_ctl),
+             launches_per_controller_replan=per_replan["merit"],
+             launches_per_cascade_replan=per_cascade["launches_per_replan"]["merit"],
+             launches_per_cascade_tick=per_cascade["launches_per_tick"]["merit"]),
+        dict(k5_entry(wbc_k5, gj, dev_ctl),
+             launches_per_cascade_replan=per_cascade["launches_per_replan"]["gauss_jordan"],
+             launches_per_cascade_tick=per_cascade["launches_per_tick"]["gauss_jordan"]),
     ]
     print(json.dumps({"g1": {"robot": g1_robot, "solve_b256": g1_res["main"], "dummy_loop": loop}}))
     print(json.dumps({"controller": dict(ctl, robot=g1_robot)}))
     print(json.dumps({"device_wbc": {"robot": g1_robot, "k5": wbc_k5, "wbc_update_batch": wbc_batch,
                                      "controller": dev_ctl}}))
+    print(json.dumps({"cascade": dict(cascade, robot=g1_robot)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -34,6 +34,7 @@ from bipedal_control_tpu_torch.runtime.controller import BipedalController, wbc_
 from bipedal_control_tpu_torch.runtime.native_rt import PolicySlot
 from bipedal_control_tpu_torch.utils import native_build
 from bipedal_control_tpu_torch.wbc import host_wbc as thw
+from bipedal_control_tpu_torch.wbc.native_qp import NativeWbc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G1_URDF = os.path.join(REPO, "tests", "data", "g1_shaped_biped.urdf")
@@ -190,6 +191,37 @@ def test_native_backends_match_numpy_twins(g1):
     nm.close()
 
 
+@pytest.mark.parametrize("flags", [(1, 1, 1, 1), (0, 0, 1, 1), (1, 1, 0, 0), (0, 0, 0, 0)])
+def test_native_wbc_matches_numpy_assembly_and_admm(g1, flags):
+    """The port's native/host_wbc.cc (HostWbc's native QP, one call per tick)
+    against HostWbc._assemble and solve_qp_np's numpy loop on the same
+    native kinematics: the task rows at 1e-12; the decision after 120 cold
+    and then 40 warm iterations at 1e-9 relative to max(1, max|ref|)
+    (measured <= 2.1e-11: its Cholesky inverse and sums over A's nonzeros
+    round differently, and one ulp on H, g and A moves the numpy decision
+    by ~1e-11), the residuals at 1e-6."""
+    _, t, _, th = g1
+    wbc = thw.HostWbc(None, None, wbc_config_from_task(t.task), hm=th)
+    rng = np.random.default_rng(5)
+    x, u = _random_xu(rng, np.asarray(t.initial_state), t.info.input_dim)
+    rbd = _random_rbd(rng, t.info.nj)
+    flags = np.asarray(flags, dtype=np.float64)
+    kin = wbc.native_model.wbc_kinematics(x, u, rbd)
+    want = wbc._assemble(kin, flags)
+    for name, got_a, want_a in zip(("H", "g", "A", "l", "u"), wbc.native_wbc.assemble(kin, u, flags), want):
+        _close(name, got_a, want_a, 1e-12)
+    warm = None
+    for iters in (120, 40):
+        ref, primal, dual = thw.solve_qp_np(*want, iters=iters, warm=warm)
+        (x_got, z_got, y_got), p_got, d_got = wbc.native_wbc.solve(kin, u, flags, iters, warm=warm)
+        _close(f"x ({iters} iterations)", x_got, ref.x, 1e-9)
+        _close(f"z ({iters} iterations)", z_got, ref.z, 1e-9)
+        _close(f"y ({iters} iterations)", y_got, ref.y, 1e-9)
+        _close(f"primal residual ({iters} iterations)", p_got, primal, 1e-6)
+        _close(f"dual residual ({iters} iterations)", d_got, dual, 1e-6)
+        warm = ref
+
+
 def test_policy_slot_round_trip():
     """The seqlock slot: nothing published reads sequence 0; each write
     publishes one whole snapshot under a new sequence number."""
@@ -220,10 +252,10 @@ def test_failed_native_build_raises(g1, monkeypatch, tmp_path, compiler):
         NativeHostModel(th)
     with pytest.raises(RuntimeError, match="host_model.cc"):
         BipedalController(t)
-    with pytest.raises(RuntimeError, match="host_qp.cc"):
-        thw.solve_qp_np(np.eye(2), np.zeros(2), np.eye(2), -np.ones(2), np.ones(2))
     with pytest.raises(RuntimeError, match="rt_runtime.cc"):
         PolicySlot(4)
+    with pytest.raises(RuntimeError, match="host_wbc.cc"):
+        NativeWbc(t.info.nj, wbc_config_from_task(t.task), np.ones(42), 0.1, 1e-6, 1.6, 1e3)
     wbc = thw.HostWbc(None, None, wbc_config_from_task(t.task), hm=th, native=False)
     x, u = _random_xu(np.random.default_rng(1), np.asarray(t.initial_state), t.info.input_dim)
     rbd = _random_rbd(np.random.default_rng(2), t.info.nj)
