@@ -1,5 +1,5 @@
 """Centroidal model: momentum matrix, flow map, state access
-(model/centroidal.py counterpart, FullCentroidalDynamics).
+(model/centroidal.py counterpart).
 
     state  x = [h_com/m (6: v_com, L/m), basePose (6: xyz + euler-zyx), q_j (nj)]
     input  u = [F_contact (3*n_c, world frame), v_joints (nj)]
@@ -42,8 +42,12 @@ GRAVITY_VECTOR = (0.0, 0.0, -9.81)
 class CentroidalModelInfo:
     """Static problem-size metadata (reference: CentroidalModelInfo).
 
-    model_type 0 = FullCentroidalDynamics, 1 = SingleRigidBodyDynamics
-    (kept for conversion; the port implements model_type 0)."""
+    model_type mirrors task.info centroidalModelType: 0 =
+    FullCentroidalDynamics (momentum matrix at the actual configuration), 1 =
+    SingleRigidBodyDynamics (momentum matrix at the nominal joint
+    configuration ``q_j_nominal`` with zero joint columns: the robot's
+    momentum is that of one rigid body locked at the default pose, while the
+    contact kinematics use the true joint angles)."""
 
     nj: int
     contact_frame_ids: tuple[int, ...]
@@ -85,16 +89,29 @@ def make_info(
     )
 
 
-def require_full_centroidal(info: CentroidalModelInfo) -> None:
-    if info.model_type != 0:
-        raise NotImplementedError(
-            "the port implements FullCentroidalDynamics (model_type 0) only"
-        )
+def momentum_coordinates(info: CentroidalModelInfo, q):
+    """Configuration at which the momentum quantities (CMM, com) are
+    evaluated: q itself for the full model, [basePose, q_j_nominal] for
+    SRBD."""
+    if info.model_type == 1:
+        nominal = constant(info.q_j_nominal, q.dtype, q.device)
+        return torch.cat([q[..., :6], nominal.expand(q.shape[:-1] + nominal.shape)], dim=-1)
+    return q
 
 
 def centroidal_momentum_matrix_info(model: RobotModel, info: CentroidalModelInfo, q):
-    require_full_centroidal(info)
-    return centroidal_momentum_matrix(model, q)
+    """Model-type-aware A(q): SRBD locks the inertia at the nominal joint
+    pose and carries no joint momentum (zero joint columns)."""
+    return cmm_info_from_kin(model, info, forward_kinematics(model, momentum_coordinates(info, q)))
+
+
+def cmm_info_from_kin(model: RobotModel, info: CentroidalModelInfo, kin_m):
+    """:func:`centroidal_momentum_matrix_info` from the forward kinematics
+    at the momentum coordinates."""
+    A = _cmm_from_kin(model, kin_m)
+    if info.model_type == 1:
+        A = torch.cat([A[..., :6], torch.zeros_like(A[..., 6:])], dim=-1)
+    return A
 
 
 # ---------------------------------------------------------------- access
@@ -143,7 +160,11 @@ def rotate_inertia(R, I):
 
 def centroidal_momentum_matrix(model: RobotModel, q):
     """A(q): (..., 6, nv) from stacked body-com Jacobians."""
-    kin = forward_kinematics(model, q)
+    return _cmm_from_kin(model, forward_kinematics(model, q))
+
+
+def _cmm_from_kin(model: RobotModel, kin):
+    """A at the configuration whose forward kinematics kin holds."""
     coms = body_com_positions(model, kin)  # (..., nb, 3)
     com = (model.body_mass[:, None] * coms).sum(-2) / model.total_mass
     J = stacked_point_jacobians(model, kin, coms, model.ancestor_mask())  # (..., nb, 6, nv)
@@ -166,21 +187,32 @@ def centroidal_momentum_matrix_dot(model: RobotModel, q, v):
 
 def generalized_velocity_from_state_input(model: RobotModel, info: CentroidalModelInfo, x, u):
     """v = [v_base; v_j] with v_base = A_b^{-1} (m h_norm - A_j v_j)."""
-    q = get_generalized_coordinates(x)
+    return _velocity(info, centroidal_momentum_matrix_info(model, info, get_generalized_coordinates(x)), x, u)
+
+
+def _velocity(info: CentroidalModelInfo, A, x, u):
     h = info.robot_mass * get_normalized_momentum(x)
     v_j = get_joint_velocities(u, info)
-    A = centroidal_momentum_matrix_info(model, info, q)
     A_b, A_j = A[..., :6], A[..., 6:]
     v_b = mv(inv6_block(A_b), h - mv(A_j, v_j))
     return torch.cat([v_b, v_j], dim=-1)
 
 
+def kinematics_info(model: RobotModel, info: CentroidalModelInfo, q):
+    """(kin, kin_m): the forward kinematics at q and at the momentum
+    coordinates (the same for the full model; SRBD's nominal joint pose)."""
+    kin = forward_kinematics(model, q)
+    return kin, kin if info.model_type == 0 else forward_kinematics(model, momentum_coordinates(info, q))
+
+
 def normalized_momentum_rate(model: RobotModel, info: CentroidalModelInfo, x, u):
     """d/dt (h/m): gravity + contact forces and torques about the com."""
-    require_full_centroidal(info)
-    q = get_generalized_coordinates(x)
-    kin = forward_kinematics(model, q)
-    coms = body_com_positions(model, kin)
+    return _momentum_rate(model, info, *kinematics_info(model, info, get_generalized_coordinates(x)), x, u)
+
+
+def _momentum_rate(model: RobotModel, info: CentroidalModelInfo, kin, kin_m, x, u):
+    # SRBD: the torque arm about the locked-inertia com (nominal joint pose)
+    coms = body_com_positions(model, kin_m)
     com = (model.body_mass[:, None] * coms).sum(-2) / model.total_mass
     g = constant(GRAVITY_VECTOR, x.dtype, x.device)
     forces = get_contact_forces(u, info)  # (..., nc, 3)
@@ -193,10 +225,12 @@ def normalized_momentum_rate(model: RobotModel, info: CentroidalModelInfo, x, u)
 
 
 def centroidal_flow_map(model: RobotModel, info: CentroidalModelInfo, x, u):
-    """Continuous dynamics xdot = f(x, u) of the full centroidal model."""
-    h_dot = normalized_momentum_rate(model, info, x, u)
-    v = generalized_velocity_from_state_input(model, info, x, u)
-    return torch.cat([h_dot, v], dim=-1)
+    """Continuous dynamics xdot = f(x, u) of the centroidal model, with one
+    forward-kinematics pass shared by the momentum rate and the momentum
+    matrix (two for SRBD)."""
+    kin, kin_m = kinematics_info(model, info, get_generalized_coordinates(x))
+    A = cmm_info_from_kin(model, info, kin_m)
+    return torch.cat([_momentum_rate(model, info, kin, kin_m, x, u), _velocity(info, A, x, u)], dim=-1)
 
 
 # ---------------------------------------------------------------- rbd conversions

@@ -12,8 +12,9 @@ block is assembled in closed form:
     v_ee     = J_ee v
 
 RK2 uses exact values and the same-point sensitivity unless
-``exact_rk2_sensitivity`` is set.  This is plain PyTorch: the JAX package
-computes it with XLA outside any Pallas kernel.
+``exact_rk2_sensitivity`` is set.  SingleRigidBodyDynamics (model_type 1)
+takes the momentum quantities at the nominal joint pose.  This is plain
+PyTorch: the JAX package computes it with XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -24,17 +25,18 @@ import torch
 
 from ..model.centroidal import (
     CentroidalModelInfo,
-    centroidal_momentum_matrix,
+    cmm_info_from_kin,
     get_contact_forces,
     get_joint_velocities,
     get_normalized_momentum,
-    require_full_centroidal,
+    kinematics_info,
 )
-from ..model.kinematics import body_com_positions, forward_kinematics, frame_position, stacked_point_jacobians
+from ..model.kinematics import body_com_positions, frame_position, stacked_point_jacobians
 from ..model.robot_model import RobotModel
 from ..model.second_order import FieldData, cmm_v_derivative, velocity_fields
 from ..ops.contract import mm, mv, quad
 from ..ops.linalg import inv6_block
+from ..utils.device import constant
 from ..utils.rotations import skew
 from .problem import (
     NUM_CONTACTS,
@@ -62,14 +64,17 @@ def _contact_anc(model, info):
 
 
 def config_terms(model: RobotModel, info: CentroidalModelInfo, q) -> ConfigTerms:
-    require_full_centroidal(info)
-    kin = forward_kinematics(model, q)
+    # momentum quantities (com, A) at the model-type configuration: actual q
+    # for FullCentroidalDynamics, nominal joints for SingleRigidBodyDynamics
+    return _config_terms(model, info, *kinematics_info(model, info, q))
+
+
+def _config_terms(model, info: CentroidalModelInfo, kin, kin_m) -> ConfigTerms:
     p_ee = torch.stack([frame_position(model, kin, fid) for fid in info.contact_frame_ids], dim=-2)
-    coms = body_com_positions(model, kin)
+    coms = body_com_positions(model, kin_m)
     com = (model.body_mass[:, None] * coms).sum(-2) / model.total_mass
     J_ee = stacked_point_jacobians(model, kin, p_ee, _contact_anc(model, info))[..., :3, :]
-    A = centroidal_momentum_matrix(model, q)
-    return ConfigTerms(p_ee=p_ee, com=com, A=A, J_ee=J_ee)
+    return ConfigTerms(p_ee=p_ee, com=com, A=cmm_info_from_kin(model, info, kin_m), J_ee=J_ee)
 
 
 class FlowJac(NamedTuple):
@@ -83,9 +88,40 @@ class FlowJac(NamedTuple):
     dA_v: torch.Tensor  # (..., 6, nv) directional CMM derivative
 
 
+def _terms_and_dq(model, info: CentroidalModelInfo, q):
+    """ConfigTerms and their q-Jacobians by velocity-field algebra
+    (model/second_order.py), with no forward-AD tangents through FK.
+
+    Returns (terms, dterms, fields, kin_m, fields_m).  dterms carries dp_ee/dq
+    (the linear contact Jacobian itself) and dcom/dq (A_lin / m); dA/dq and
+    dJ_ee/dq are never formed: their only consumers contract them with the
+    generalized velocity (cmm_v_derivative on kin_m, fields_m, and
+    _eq_jacobians on fields)."""
+    # momentum quantities at the model-type configuration (SRBD: nominal
+    # joints, zero joint columns, zero joint-coordinate derivatives)
+    kin, kin_m = kinematics_info(model, info, q)
+    terms = _config_terms(model, info, kin, kin_m)
+    fields = velocity_fields(model, kin)
+    fields_m = fields if kin_m is kin else velocity_fields(model, kin_m)
+    dterms = ConfigTerms(p_ee=terms.J_ee, com=terms.A[..., :3, :] / info.robot_mass, A=None, J_ee=None)
+    return terms, dterms, fields, kin_m, fields_m
+
+
+def _terms_and_dq_ad(model, info: CentroidalModelInfo, q):
+    """(config_terms, their q-Jacobians) by torch.func.jacfwd over the
+    leading batch dims (the test oracle of :func:`_terms_and_dq`): each
+    field of the second ConfigTerms has a trailing nv axis."""
+    fn = lambda qq: config_terms(model, info, qq)
+    lead = q.shape[:-1]
+    flat = q.reshape(-1, q.shape[-1])
+    val, jac = torch.func.vmap(lambda qq: (fn(qq), torch.func.jacfwd(fn)(qq)))(flat)
+    unflat = lambda t: ConfigTerms(*(a.reshape(lead + a.shape[1:]) for a in t))
+    return unflat(val), unflat(jac)
+
+
 def _flow_with_jacobians(model, info: CentroidalModelInfo, x, u) -> FlowJac:
-    require_full_centroidal(info)
     nx, nu = info.state_dim, info.input_dim
+    nv = info.generalized_dim
     nj = info.nj
     m = info.robot_mass
     dtype, device = x.dtype, x.device
@@ -95,22 +131,23 @@ def _flow_with_jacobians(model, info: CentroidalModelInfo, x, u) -> FlowJac:
     forces = get_contact_forces(u, info)  # (..., nc, 3)
     v_j = get_joint_velocities(u, info)
 
-    kin = forward_kinematics(model, q)
-    p_ee = torch.stack([frame_position(model, kin, fid) for fid in info.contact_frame_ids], dim=-2)
-    J_ee = stacked_point_jacobians(model, kin, p_ee, _contact_anc(model, info))[..., :3, :]
-    fields = velocity_fields(model, kin)
-    A = centroidal_momentum_matrix(model, q)
-    coms = body_com_positions(model, kin)
-    com = (model.body_mass[:, None] * coms).sum(-2) / model.total_mass
-    terms = ConfigTerms(p_ee=p_ee, com=com, A=A, J_ee=J_ee)
+    terms, _, fields, kin_m, fields_m = _terms_and_dq(model, info, q)
+    p_ee, com, A, J_ee = terms
 
     A_b, A_j = A[..., :6], A[..., 6:]
     Ab_inv = inv6_block(A_b)
     v_b = mv(Ab_inv, h - mv(A_j, v_j))
     v = torch.cat([v_b, v_j], dim=-1)
-    dA_v = cmm_v_derivative(model, kin, fields, v)
+    if info.model_type == 1:
+        # SRBD: A's joint columns are zero (contract with [v_b, 0]) and A
+        # depends on q only through the base coordinates (zero joint columns)
+        v_m = torch.cat([v_b, torch.zeros_like(v_j)], dim=-1)
+        dA_v = cmm_v_derivative(model, kin_m, fields_m, v_m)
+        dA_v = torch.cat([dA_v[..., :6], torch.zeros(lead + (6, nv - 6), dtype=dtype, device=device)], dim=-1)
+    else:
+        dA_v = cmm_v_derivative(model, kin_m, fields_m, v)
 
-    g = torch.tensor(GRAVITY, dtype=dtype, device=device)
+    g = constant(GRAVITY, dtype, device)
     hdot_lin = g + forces.sum(-2) / m
     rel = p_ee - com[..., None, :]
     hdot_ang = torch.linalg.cross(rel, forces).sum(-2) / m
@@ -156,7 +193,7 @@ def _eq_jacobians(model, info: CentroidalModelInfo, settings: OcpSettings, x, u,
     move = np.zeros((len(info.contact_frame_ids), model.nv))
     move[:, :6] = 1.0
     move[:, 6:] = _contact_anc(model, info)
-    mvv = torch.as_tensor(move, dtype=dtype, device=device) * v[..., None, :]  # (..., nc, nv)
+    mvv = constant(move, dtype, device) * v[..., None, :]  # (..., nc, nv)
     fd = fj.fields
     t1 = (mvv[..., :, :, None, None] * fd.dv0[..., None, :, :, :]).sum(-3)  # (..., nc, nv_l, 3)
     dwv = (mvv[..., :, :, None, None] * fd.dw[..., None, :, :, :]).sum(-3)
@@ -172,7 +209,7 @@ def _eq_jacobians(model, info: CentroidalModelInfo, settings: OcpSettings, x, u,
     dv_b_dvj = -mm(Ab_inv, terms.A[..., 6:])
     dv_ee_dvj = J6 @ dv_b_dvj[..., None, :, :] + J[..., 6:]
 
-    zsel = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    zsel = constant((0.0, 0.0, 1.0), dtype, device)
     dzv_dq = dv_ee_dq + gain * (J * zsel[:, None])  # dp_ee/dq = J_ee
     fl3 = flags[..., :, None, None]
     C_pc = torch.cat([fl3 * dv_ee_dh, fl3 * dzv_dq], dim=-1).reshape(lead + (3 * NUM_CONTACTS, nx))
@@ -201,7 +238,7 @@ def _flow_from_terms(info: CentroidalModelInfo, terms: ConfigTerms, x, u):
     v_j = get_joint_velocities(u, info)
     A_b, A_j = terms.A[..., :6], terms.A[..., 6:]
     v_b = mv(inv6_block(A_b), h - mv(A_j, v_j))
-    g = torch.tensor(GRAVITY, dtype=x.dtype, device=x.device)
+    g = constant(GRAVITY, x.dtype, x.device)
     hdot_lin = g + forces.sum(-2) / m
     hdot_ang = torch.linalg.cross(terms.p_ee - terms.com[..., None, :], forces).sum(-2) / m
     f = torch.cat([hdot_lin, hdot_ang, v_b, v_j], dim=-1)
@@ -289,7 +326,7 @@ def _eq_from_terms(settings: OcpSettings, terms: ConfigTerms, v, u, info, refs: 
     gain = settings.position_error_gain
     forces = get_contact_forces(u, info)
     v_ee = (terms.J_ee * v[..., None, None, :]).sum(-1)
-    zsel = torch.tensor([0.0, 0.0, 1.0], dtype=u.dtype, device=u.device)
+    zsel = constant((0.0, 0.0, 1.0), u.dtype, u.device)
     zero_vel = v_ee + gain * (terms.p_ee * zsel)
     fl = flags[..., :, None]
     per_contact = fl * zero_vel + (1.0 - fl) * forces
@@ -307,12 +344,12 @@ def node_defect_eq(model, info: CentroidalModelInfo, settings: OcpSettings, x, u
     f0, v0 = _flow_from_terms(info, terms0, x, u)
     if settings.integrator == "euler":
         F = x + dt * f0
-    elif settings.integrator == "rk2":
+    else:
+        # RK2 for every other integrator, "rk4" included: the reference's
+        # node_eval does the same (its else branch), and the port matches it
         x1 = x + 0.5 * dt * f0
         f1, _ = _flow_from_terms(info, config_terms(model, info, x1[..., 6:]), x1, u)
         F = x + dt * f1
-    else:
-        raise NotImplementedError(f"node_eval for {settings.integrator}")
     defect = F - x_next
 
     eq = _eq_from_terms(settings, terms0, v0, u, info, refs)

@@ -34,7 +34,14 @@ NUM_CONTACTS = 4
 class OcpSettings:
     """Solver knobs with the JAX package's field names and defaults.
 
-    The port implements cone "soft" and integrators "euler" and "rk2".
+    cone: "soft" (the relaxed log-barrier), "hard" (the barrier's mu and
+    delta shrink geometrically over the SQP iterations toward
+    cone_mu_final and cone_delta_final) or "ipm" (primal-dual slack and dual
+    iterates on the stance cones, solver/sqp.py).  riccati also takes
+    "parallel" (associative scan, float64 only) and "parallel_sqrt" (its
+    square-root form), solver/parallel_riccati.py.  The structured
+    linearization takes integrators "euler" and "rk2"; "rk4" is taken by the
+    autodiff :func:`linearize_node` only.
     ``linearize="pallas"``, ``riccati="pallas"`` and ``merit="pallas"`` keep
     their reference names and mean "the hand-written kernel": the CUDA
     kernels of ``ops/linearize_kernel.py``, ``ops/riccati_kernel.py`` and
@@ -146,6 +153,23 @@ def friction_cone_values(settings: OcpSettings, u, info: CentroidalModelInfo):
     return settings.friction_coefficient * (forces[..., 2] + settings.gripper_force) - f_tangent
 
 
+def friction_cone_grads_u(settings: OcpSettings, u, info: CentroidalModelInfo):
+    """(..., nc, nu) gradient of :func:`friction_cone_values` w.r.t. the
+    input: each cone depends only on its contact's force slots,
+    d h_i / d F_i = [-Fx/f_tan, -Fy/f_tan, mu]."""
+    forces = get_contact_forces(u, info)
+    nc = forces.shape[-2]
+    f_tan = torch.sqrt(forces[..., 0] ** 2 + forces[..., 1] ** 2 + settings.cone_regularization)
+    g3 = torch.stack(
+        [-forces[..., 0] / f_tan, -forces[..., 1] / f_tan, torch.full_like(f_tan, settings.friction_coefficient)],
+        dim=-1,
+    )  # (..., nc, 3)
+    G = torch.zeros(u.shape[:-1] + (nc, u.shape[-1]), dtype=u.dtype, device=u.device)
+    for i in range(nc):
+        G[..., i, 3 * i : 3 * i + 3] = g3[..., i, :]
+    return G
+
+
 def relaxed_barrier(h, mu, delta):
     """OCS2 RelaxedBarrierPenalty: -mu ln(h) for h > delta, quadratic below."""
     safe_h = torch.clamp(h, min=delta)
@@ -210,6 +234,54 @@ class LinearizedNode(NamedTuple):
     qx: torch.Tensor  # (nx,)
     qu: torch.Tensor  # (nu,)
     cost: torch.Tensor  # () dt-scaled cost value
+
+
+def linearize_node(
+    model: RobotModel, info: CentroidalModelInfo, settings: OcpSettings, Q, R, x, u, x_next, refs: NodeRefs
+) -> LinearizedNode:
+    """Full Gauss-Newton data of every node of the leading (scenario, node)
+    dims by automatic differentiation (the reference's linearize_node, the
+    oracle of the structured linearization): the dynamics and the equality
+    residual share one forward-mode Jacobian (``torch.func.jacfwd``, mapped
+    over the nodes by ``torch.func.vmap``) through :func:`discrete_dynamics`,
+    so every integrator is taken, "rk4" included; the cost's gradient by
+    ``torch.func.grad``, its Hessian exact: (Q, R) plus the barrier's u-u
+    curvature."""
+    nx = x.shape[-1]
+
+    def fused(xx, uu, ref):
+        F = discrete_dynamics(model, info, settings, xx, uu, ref.dt)
+        e = equality_residual(model, info, settings, xx, uu, ref)
+        return torch.cat([F, e], dim=-1)
+
+    val, (Jx, Ju) = _value_and_jacobians(fused, x, u, refs)
+    A, C = Jx[..., :nx, :], Jx[..., nx:, :]
+    B, D = Ju[..., :nx, :], Ju[..., nx:, :]
+    c = val[..., :nx] - x_next
+
+    cost_fn = lambda xx, uu, ref: ref.dt * node_cost(model, info, settings, Q, R, xx, uu, ref)
+    grad = lambda xx, uu, ref: torch.func.grad(cost_fn, argnums=(0, 1))(xx, uu, ref)
+    qx, qu = _map_nodes(grad, x, u, refs)
+    Qxx = refs.dt[..., None, None] * Q
+    Quu = refs.dt[..., None, None] * R + _barrier_hessian_u(settings, info, u, refs)
+    Qux = torch.zeros(x.shape[:-1] + (u.shape[-1], nx), dtype=x.dtype, device=x.device)
+    return LinearizedNode(A, B, c, C, D, val[..., nx:], Qxx, Quu, Qux, qx, qu, cost_fn(x, u, refs))
+
+
+def _map_nodes(fn, x, u, refs: NodeRefs):
+    """fn(x (nx,), u (nu,), ref of one node) mapped by ``torch.func.vmap``
+    over the leading dims of x, u and refs' fields, which it flattens."""
+    lead = x.shape[:-1]
+    flat = lambda a: a.expand(lead + a.shape[len(lead):]).reshape((-1,) + a.shape[len(lead):])
+    out = torch.func.vmap(fn)(flat(x), flat(u), NodeRefs(*(flat(f) for f in refs)))
+    return torch.utils._pytree.tree_map(lambda a: a.reshape(lead + a.shape[1:]), out)
+
+
+def _value_and_jacobians(fn, x, u, refs: NodeRefs):
+    """(fn(x, u, refs), (d fn / dx, d fn / du)) by forward mode for every
+    node of the leading dims; fn maps one node's (x, u, ref)."""
+    one = lambda xx, uu, ref: (fn(xx, uu, ref), torch.func.jacfwd(fn, argnums=(0, 1))(xx, uu, ref))
+    return _map_nodes(one, x, u, refs)
 
 
 def _barrier_hessian_u(settings: OcpSettings, info: CentroidalModelInfo, u, refs: NodeRefs):

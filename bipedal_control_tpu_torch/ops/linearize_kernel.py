@@ -88,9 +88,14 @@ linearize_cuda.launches = 0
 
 
 def make_node_linearizer(model, info, settings, Q, R, static=None):
-    """Linearizer f(xs, us, xns, refs) -> LinearizedNode over any leading
-    (scenario, node) dims: the kernel plus the cost quadratics for CUDA
-    tensors, the plain ``linearize_node_structured`` for CPU tensors.  Raises
+    """Linearizer f(xs, us, xns, refs, settings_it=None) -> LinearizedNode
+    over any leading (scenario, node) dims: the kernel plus the cost
+    quadratics for CUDA tensors, the plain ``linearize_node_structured`` for
+    CPU tensors.  settings_it, when given, are the settings of the SQP
+    iteration (its barrier mu and delta: solver/sqp.py::iteration_settings),
+    which the cost quadratics and the plain version use; the kernel's own
+    inputs (the position-error gain and the integrator) are the same in
+    every iteration and are taken from ``settings``.  Raises
     for what the kernel does not implement, as the TPU kernel does:
     model_type != 0, the exact RK2 sensitivity, and integrators other than
     euler/rk2.
@@ -106,9 +111,10 @@ def make_node_linearizer(model, info, settings, Q, R, static=None):
     defines, params = static if static is not None else circuit_static(model, info)
     gain = float(settings.position_error_gain)
 
-    def linearize(xs, us, xns, refs) -> LinearizedNode:
+    def linearize(xs, us, xns, refs, settings_it=None) -> LinearizedNode:
+        s = settings if settings_it is None else settings_it
         if xs.device.type == "cpu":
-            return linearize_node_structured(model, info, settings, Q, R, xs, us, xns, refs)
+            return linearize_node_structured(model, info, s, Q, R, xs, us, xns, refs)
         lead = xs.shape[:-1]
         flat = lambda a, w: a.reshape(-1, w).contiguous()
         outs = linearize_cuda(
@@ -118,6 +124,6 @@ def make_node_linearizer(model, info, settings, Q, R, static=None):
             flat(refs.swing_pref, NUM_CONTACTS), refs.dt.reshape(-1).contiguous(),
         )
         A, B, c, C, D, e = (t.reshape(lead + t.shape[1:]) for t in outs)
-        return LinearizedNode(A, B, c, C, D, e, *cost_quadratics(info, settings, Q, R, xs, us, refs))
+        return LinearizedNode(A, B, c, C, D, e, *cost_quadratics(info, s, Q, R, xs, us, refs))
 
     return linearize

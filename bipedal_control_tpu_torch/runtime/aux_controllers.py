@@ -78,10 +78,14 @@ class UpperJointController:
 
 
 # ---------------------------------------------------------------- checkpoint
+# the primal policy's fields (the reference's file keys; not the ipm's cone iterates)
+POLICY_FIELDS = SqpSolution._fields[:8]
+
+
 def save_policy(path: str, sol: SqpSolution) -> None:
     """Serialize scenario 0 of a batched solution (warm start / resume /
     offline analysis)."""
-    np.savez(path, **{name: getattr(sol, name)[0].detach().cpu().numpy() for name in SqpSolution._fields})
+    np.savez(path, **{name: getattr(sol, name)[0].detach().cpu().numpy() for name in POLICY_FIELDS})
 
 
 def load_policy(path: str, device=None, dtype=torch.float64) -> SqpSolution:
@@ -90,4 +94,4 @@ def load_policy(path: str, device=None, dtype=torch.float64) -> SqpSolution:
     device = resolve_device(device)
     with np.load(path) as z:
         return SqpSolution(*(torch.as_tensor(z[name], dtype=dtype, device=device)[None]
-                             for name in SqpSolution._fields))
+                             for name in POLICY_FIELDS))

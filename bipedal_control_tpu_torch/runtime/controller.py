@@ -50,7 +50,7 @@ from ..estim.estimator import KalmanStateEstimator
 from ..interface import RobotInterface
 from ..model.host_model import centroidal_state_from_rbd_np, make_host_model
 from ..model.native_model import NativeHostModel
-from ..solver.sqp import SqpSolution
+from ..solver.sqp import scenario
 from ..utils.cuda_graph import HostCall
 from ..utils.timing import RepeatedTimer
 from ..wbc.host_wbc import HostWbc
@@ -396,7 +396,7 @@ class BipedalController:
         if t - self.last_mpc_time >= 1.0 / self.cfg.mpc_frequency - 1e-9:
             self.mpc.advance(t, x_dev)
             self.last_mpc_time = t
-        sol = SqpSolution(*(f[0] for f in self.mpc.last_solution))  # the one scenario
+        sol = scenario(self.mpc.last_solution, 0)  # the one scenario
         t_dev = torch.full((1,), float(t), dtype=sol.t_nodes.dtype, device=sol.t_nodes.device)
         pol = evaluate_policy(sol, t_dev, x_dev, use_feedback=self.cfg.use_feedback_policy)
         # planned contact flags at t from the frozen gait of this solve

@@ -13,7 +13,12 @@ rebuilt or uploaded per replan.
 On the card, with the kernels' settings (linearize, riccati and merit
 "pallas"), each kind of replan (cold and warm start) runs op by op at its
 first use, is then captured in a CUDA graph, and is replayed after that:
-~20 launches a replan instead of ~340.  Every torch call releases the GIL and takes it back, so
+~20 launches a replan instead of ~340.  The iLQR replan (``solver="ilqr"``)
+replays three kinds of graph on the card, whatever the settings' backends
+(it runs the plain structured linearization and Riccati sweep, as the
+reference's does): the front end with iteration 0 (one per cold and warm
+start), one later iteration (replayed ``ddp_iterations - 1`` times), and
+the solution's evaluation.  Every torch call releases the GIL and takes it back, so
 an op-by-op replan on a worker thread waits for the GIL once per operation
 while the 400 Hz control tick holds it (runtime/async_mpc.py); the graph is
 what lets the worker keep its 50 Hz beside the tick.
@@ -25,10 +30,12 @@ import torch
 from ..gait.mode_schedule import GaitTable
 from ..gait.swing import SwingTable
 from ..interface import RobotInterface
+from ..ocp.problem import NodeRefs
 from ..ops.linearize_kernel import make_node_linearizer
 from ..ops.merit_kernel import make_merit_sums
 from ..reference.manager import ReferenceManager
 from ..reference.target import TargetTable
+from ..solver.ddp import DdpSettings, IlqrState, ilqr_finish, ilqr_init, ilqr_iteration, ilqr_solve
 from ..solver.sqp import SqpSolution, build_refs, initial_trajectory, sqp_solve, warm_start_trajectories
 from ..utils.cuda_graph import GraphedCall
 from ..utils.precision import set_full_f32_matmul
@@ -96,10 +103,15 @@ def make_capture_hook(cap, nj: int):
 
 
 class MpcRunner:
-    """`solver` selects the replan backend: "sqp" (the SqpMpc analogue).
-    "ilqr" (AL-iLQR, solver/ddp.py) is not ported yet (ROADMAP queue 1
-    item 8) and raises NotImplementedError.  The backends of the solve are
-    the interface's settings: "pallas" means the CUDA kernels for tensors on
+    """`solver` selects the replan backend: "sqp" (the SqpMpc analogue) or
+    "ilqr" (GaussNewtonDDP_MPC, BipedalRobotDdpMpcNode.cpp:70-72: AL-iLQR
+    single shooting, solver/ddp.py, whose iteration 0 linearizes around the
+    warm or cold start's states).  ``ddp_iterations`` overrides task.info's
+    ddp.maxNumIterations and ``ddp_penalty`` its initial constraint penalty
+    (default max(constraintPenaltyInitialValue, 100): the task's 20
+    under-penalizes the swing rows in a trot replan chain).  The AL state is
+    not carried across replans.  The backends of the SQP are the
+    interface's settings: "pallas" means the CUDA kernels for tensors on
     the card and their plain versions on the CPU."""
 
     def __init__(
@@ -107,12 +119,10 @@ class MpcRunner:
         iface: RobotInterface,
         reference_manager: ReferenceManager | None = None,
         solver: str = "sqp",
+        ddp_iterations: int | None = None,
+        ddp_penalty: float | None = None,
     ):
-        if solver == "ilqr":
-            raise NotImplementedError(
-                "solver='ilqr': the port has no AL-iLQR yet (solver/ddp.py, ROADMAP queue 1 item 8)"
-            )
-        if solver != "sqp":
+        if solver not in ("sqp", "ilqr"):
             raise ValueError(f"unknown solver {solver!r} (expected 'sqp' or 'ilqr')")
         set_full_f32_matmul()
         self.iface = iface
@@ -122,21 +132,31 @@ class MpcRunner:
         self.timer = RepeatedTimer("mpc", device=iface.device)
         self.solver = solver
         model, info, settings = iface.model, iface.info, iface.settings
+        self.ddp = None
+        if solver == "ilqr":
+            c = iface.task.ddp
+            self.ddp = DdpSettings(
+                iterations=int(ddp_iterations if ddp_iterations is not None else c.max_iterations),
+                constraint_penalty=float(ddp_penalty if ddp_penalty is not None else max(c.constraint_penalty, 100.0)),
+                penalty_increase_rate=float(c.penalty_increase_rate),
+                strategy=c.strategy,
+            )
         # the kernels' front ends, built once from the interface's circuit
         # tables (the plain versions for CPU tensors)
+        sqp = solver == "sqp"
         self._linearize = (
             make_node_linearizer(model, info, settings, iface.Q, iface.R, static=iface.circuit)
-            if settings.linearize == "pallas" else None
+            if sqp and settings.linearize == "pallas" else None
         )
         self._merit = (
             make_merit_sums(model, info, settings, static=iface.circuit)
-            if settings.merit == "pallas" and len(settings.linesearch_alphas) else None
+            if sqp and settings.merit == "pallas" and len(settings.linesearch_alphas) else None
         )
         self._capture_dq, self._decay, self._wshift = make_capture_hook(getattr(iface.task, "capture", None), info.nj)
         self._num_nodes = settings.num_intervals + 1
         kernels = (settings.linearize, settings.riccati, settings.merit) == ("pallas",) * 3
-        # "cold" / "warm" -> GraphedCall of _replan, made at first use; None: every replan runs op by op
-        self._graphs = {} if iface.device.type == "cuda" and kernels else None
+        # replan kind -> GraphedCall, made at first use; None: every replan runs op by op
+        self._graphs = {} if iface.device.type == "cuda" and (kernels or not sqp) else None
 
     @property
     def graphed(self) -> bool:
@@ -169,18 +189,20 @@ class MpcRunner:
             prev = self.last_solution
             warm = () if prev is None else (prev.t_nodes, prev.x_traj, prev.u_traj)
             inputs = [x, *frozen.gait, *frozen.swing, *frozen.target, frozen.t_nodes, *warm]
+            kind = "warm" if warm else "cold"
             if self._graphs is None:
                 sol = self._replan(*inputs)
+            elif self.solver == "ilqr":
+                sol = self._ilqr_graphed(kind, inputs)
             else:
-                sol = self._graphs.setdefault("warm" if warm else "cold", GraphedCall(self._replan))(inputs)
+                sol = self._graphs.setdefault(kind, GraphedCall(self._replan))(inputs)
         self.last_solution = sol
         return sol
 
-    def _replan(self, x, *tables) -> SqpSolution:
-        """One replan as a function of tensors only (what a CUDA graph
-        captures): x, the frozen gait, swing and target tables' fields,
-        the node grid, and for a warm start the previous solution's t_nodes,
-        x_traj and u_traj."""
+    def _front(self, x, *tables):
+        """A replan's references and start: (refs, t_nodes, xs, us) from x,
+        the frozen gait, swing and target tables' fields, the node grid, and
+        for a warm start the previous solution's t_nodes, x_traj, u_traj."""
         iface = self.iface
         ng, ns, nt = len(GaitTable._fields), len(SwingTable._fields), len(TargetTable._fields)
         gait, swing = GaitTable(*tables[:ng]), SwingTable(*tables[ng : ng + ns])
@@ -192,5 +214,51 @@ class MpcRunner:
             xs, us = warm_start_trajectories(*warm, t_nodes[None])
         else:
             xs, us = initial_trajectory(iface.info, refs, x[None], self._num_nodes)
-        return sqp_solve(iface.model, iface.info, iface.settings, iface.Q, iface.R, refs, t_nodes[None], x[None],
+        return refs, t_nodes[None], xs, us
+
+    def _replan(self, x, *tables) -> SqpSolution:
+        """One replan as a function of tensors only (what a CUDA graph
+        captures for the SQP); see :meth:`_front` for the arguments."""
+        iface = self.iface
+        refs, t_nodes, xs, us = self._front(x, *tables)
+        if self.solver == "ilqr":
+            # xs seeds iteration 0's linearization only; the accepted states
+            # come from nonlinear rollouts
+            return ilqr_solve(iface.model, iface.info, iface.settings, self.ddp, iface.Q, iface.R, refs, t_nodes,
+                              x[None], us, x_warm=xs)
+        return sqp_solve(iface.model, iface.info, iface.settings, iface.Q, iface.R, refs, t_nodes, x[None],
                          xs, us, merit_sums=self._merit, linearize=self._linearize)
+
+    # ---- the iLQR replan in CUDA graphs: (refs, t_nodes, state) flow between them as flat tuples
+    def _ilqr_args(self):
+        iface = self.iface
+        return iface.model, iface.info, iface.settings, self.ddp, iface.Q, iface.R
+
+    def _ilqr_begin(self, x, *tables):
+        refs, t_nodes, xs, us = self._front(x, *tables)
+        state = ilqr_init(*self._ilqr_args(), refs, x[None], us, x_warm=xs)
+        if self.ddp.iterations:
+            state, _ = ilqr_iteration(*self._ilqr_args(), refs, x[None], state, first=True)
+        return (*refs, t_nodes, *state)
+
+    def _ilqr_step(self, x, *flat):
+        nr = len(NodeRefs._fields)
+        state, _ = ilqr_iteration(*self._ilqr_args(), NodeRefs(*flat[:nr]), x[None], IlqrState(*flat[nr:]),
+                                  first=False)
+        return tuple(state)
+
+    def _ilqr_end(self, *flat):
+        nr = len(NodeRefs._fields)
+        model, info, settings, _, Q, R = self._ilqr_args()
+        return ilqr_finish(model, info, settings, Q, R, NodeRefs(*flat[:nr]), flat[nr], IlqrState(*flat[nr + 1 :]))
+
+    def _ilqr_graphed(self, kind: str, inputs) -> SqpSolution:
+        """The iLQR replan from graph replays: the front end with iteration
+        0, the later iterations, the evaluation of the result."""
+        graph = lambda name, fn: self._graphs.setdefault(name, GraphedCall(fn))
+        nr = len(NodeRefs._fields)
+        carry = graph(kind, self._ilqr_begin)(inputs)
+        refs, t_nodes, state = carry[:nr], carry[nr], carry[nr + 1 :]
+        for _ in range(1, self.ddp.iterations):
+            state = graph("iterate", self._ilqr_step)([inputs[0], *refs, *state])
+        return graph("finish", self._ilqr_end)([*refs, t_nodes, *state])

@@ -18,7 +18,7 @@ from ..interface import RobotInterface
 from ..model.centroidal import centroidal_flow_map
 from ..runtime.mpc_runner import MpcRunner
 from ..runtime.mrt import evaluate_policy
-from ..solver.sqp import SqpSolution
+from ..solver.sqp import scenario
 
 
 @dataclasses.dataclass
@@ -67,7 +67,7 @@ def run_dummy_loop(
         if t - last_plan >= 1.0 / mpc_frequency - 1e-9:
             mpc.advance(t, x)
             last_plan = t
-        sol = SqpSolution(*(f[0] for f in mpc.last_solution))  # the one scenario
+        sol = scenario(mpc.last_solution, 0)  # the one scenario
         pol = evaluate_policy(sol, t, x, use_feedback=use_feedback)
         times.append(t)
         states.append(x)

@@ -3,9 +3,17 @@
 
 One iteration: structured linearization of every (scenario, node) (the
 linearize kernel for ``linearize="pallas"``), the equality-constrained
-Riccati sweep, then the OCS2 filter line search over the step candidates,
-all evaluated at once.  ``sqp_iterations=1`` is the real-time iteration.
-The port implements cone "soft"; "hard" and "ipm" raise NotImplementedError.
+Riccati sweep (the kernel for ``riccati="pallas"``, or the associative scans
+of solver/parallel_riccati.py), then the OCS2 filter line search over the
+step candidates, all evaluated at once.  ``sqp_iterations=1`` is the
+real-time iteration.
+
+Friction cones: "soft" (the relaxed barrier), "hard" (its mu and delta
+shrink over the unrolled iterations) and "ipm" (primal-dual slack and dual
+iterates, condensed Newton terms on the stage quadratics, per-lane
+fraction-to-boundary caps on the step candidates).  Every per-lane decision
+(the filter's pick, the caps, the dual step) is a tensor select, so a solve
+reads nothing back to the host.
 
 Every tensor argument carries the scenario batch on its leading axis B; a
 batch of one is the single-solve (latency) path.  The solve runs where its
@@ -13,6 +21,7 @@ tensors lie.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -21,7 +30,15 @@ import torch
 from ..model.centroidal import CentroidalModelInfo
 from ..model.robot_model import RobotModel
 from ..ocp.linearize import linearize_node_structured, node_eval
-from ..ocp.problem import NodeRefs, OcpSettings, make_node_refs, node_cost, weight_compensating_input
+from ..ocp.problem import (
+    NodeRefs,
+    OcpSettings,
+    friction_cone_grads_u,
+    friction_cone_values,
+    make_node_refs,
+    node_cost,
+    weight_compensating_input,
+)
 from .riccati import solve_lqr, solve_lqr_pallas
 
 # Filter-linesearch bands on the squared constraint violation (task.info
@@ -41,6 +58,16 @@ class SqpSolution(NamedTuple):
     defect_norm: torch.Tensor  # (B,) l1 dynamics defect
     eq_norm: torch.Tensor  # (B,) l1 equality residual
     step_size: torch.Tensor  # (B,) accepted line-search step
+    # cone="ipm" (None otherwise): friction-cone slack and dual iterates at
+    # the returned primal point
+    cone_slack: torch.Tensor | None = None  # (B, N, nc)
+    cone_dual: torch.Tensor | None = None  # (B, N, nc)
+
+
+def scenario(sol: SqpSolution, b: int) -> SqpSolution:
+    """Scenario b of a batched solution, its fields without the batch axis
+    (the cone fields stay None where the solve has none)."""
+    return SqpSolution(*(None if f is None else f[b] for f in sol))
 
 
 def eq_mask_from_flags(contact_flags):
@@ -85,16 +112,45 @@ def _filter_accept(cost_base, viol_base, cost_step, viol_step):
 
 
 def _check_settings(info: CentroidalModelInfo, settings: OcpSettings) -> None:
-    if settings.cone != "soft":
-        raise NotImplementedError(f"cone={settings.cone!r}: the port implements the soft cone only")
     if settings.linearize not in ("structured", "pallas"):
         raise NotImplementedError(f"linearize={settings.linearize!r}: the port implements 'structured' and 'pallas'")
-    if settings.riccati not in ("sequential", "pallas"):
-        raise NotImplementedError(f"riccati={settings.riccati!r}: the port implements 'sequential' and 'pallas'")
+    if settings.riccati not in ("sequential", "pallas", "parallel", "parallel_sqrt"):
+        raise NotImplementedError(f"riccati={settings.riccati!r}")
     if settings.merit not in ("xla", "pallas"):
         raise NotImplementedError(f"merit={settings.merit!r}")
-    if info.model_type != 0:
-        raise NotImplementedError("the port implements FullCentroidalDynamics (model_type 0) only")
+
+
+def iteration_settings(settings: OcpSettings, it: int) -> OcpSettings:
+    """The settings of unrolled SQP iteration ``it``.  cone="hard": an
+    interior-point continuation, the barrier's mu and relaxed switch point
+    delta shrink geometrically per iteration, floored at cone_mu_final and
+    cone_delta_final, so late iterations solve an almost-true log barrier.
+    cone="ipm": the cone enters through the primal-dual condensed terms, so
+    the soft barrier is off (barrier_mu=0 zeroes every relaxed-barrier
+    term)."""
+    if settings.cone == "ipm":
+        return dataclasses.replace(settings, barrier_mu=0.0)
+    if settings.cone != "hard":
+        return settings
+    decay = settings.cone_mu_decay**it
+    return dataclasses.replace(
+        settings,
+        barrier_mu=max(settings.barrier_mu * decay, settings.cone_mu_final),
+        barrier_delta=max(settings.barrier_delta * decay, settings.cone_delta_final),
+    )
+
+
+def _lqr_backend(settings: OcpSettings):
+    """The Riccati solve f(nodes, masks, dx0) of ``settings.riccati``."""
+    if settings.riccati == "pallas":
+        return solve_lqr_pallas
+    if settings.riccati in ("parallel", "parallel_sqrt"):
+        from . import parallel_riccati
+
+        fn = (parallel_riccati.solve_lqr_parallel if settings.riccati == "parallel"
+              else parallel_riccati.solve_lqr_parallel_sqrt)
+        return lambda nodes, masks, dx0: fn(nodes, masks, dx0, settings.riccati_penalty)
+    return solve_lqr
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,6 +160,79 @@ def _alphas_tensor(alphas: tuple, dtype: torch.dtype, device: torch.device) -> t
     capture of the solve (runtime/mpc_runner.py) cannot copy from the host,
     and the batched solves skip one copy per iteration."""
     return torch.tensor(alphas, dtype=dtype, device=device)
+
+
+class _ConeIpm:
+    """cone="ipm": the primal-dual slack/dual state of every (scenario,
+    node, stance cone) (the OCS2 ipm role).  Central path s * lam -> mu,
+    with mu marching ipm_mu_init -> ipm_mu_target across the unrolled
+    iterations.  Swing cones carry benign (1, mu) iterates and zero
+    condensed weight, so every shape is static."""
+
+    def __init__(self, settings: OcpSettings, info, refs: NodeRefs, us, cone_warm):
+        self.settings, self.info = settings, info
+        self.flags = refs.contact_flags  # (B, N, nc)
+        self.act = self.flags > 0.5
+        self.w = refs.dt[..., None] * self.flags
+        self.mu = settings.ipm_mu_init
+        if cone_warm is not None:
+            self.s, self.lam = cone_warm
+        else:
+            g = friction_cone_values(settings, us, info)
+            self.s = torch.where(self.act, torch.clamp(g, min=1e-2), torch.ones_like(g))
+            self.lam = torch.where(self.act, self.mu / self.s, torch.full_like(g, self.mu))
+
+    def condense(self, nodes, us):
+        """Add the condensed Newton terms to the stage quadratics (dt-scaled
+        like every other stage cost term):
+            Quu += sum_j w_j (lam_j/s_j) G_j G_j^T
+            qu  -= sum_j w_j (mu/s_j - (lam_j/s_j)(g_j - s_j)) G_j"""
+        self.g = friction_cone_values(self.settings, us, self.info)  # (B, N, nc)
+        self.G = friction_cone_grads_u(self.settings, us, self.info)  # (B, N, nc, nu)
+        self.sig = self.lam / self.s
+        wG = (self.w * self.sig)[..., None] * self.G
+        Quu_pd = wG.transpose(-1, -2) @ self.G
+        qu_pd = -((self.w * (self.mu / self.s - self.sig * (self.g - self.s)))[..., None] * self.G).sum(-2)
+        return nodes._replace(Quu=nodes.Quu + Quu_pd, qu=nodes.qu + qu_pd)
+
+    def directions(self, du, alphas):
+        """Slack and dual Newton directions recovered from du; returns the
+        candidates capped per lane by the fraction-to-boundary rule (B, A)."""
+        self.ds = (self.G @ du[..., None])[..., 0] + (self.g - self.s)
+        self.dlam = (self.mu - self.s * self.lam) / self.s - self.sig * self.ds
+        frac = self.settings.ipm_fraction_to_boundary
+
+        def max_step(v, dv):
+            r = torch.where(self.act & (dv < 0), -frac * v / torch.clamp(dv, max=-1e-12),
+                            torch.full_like(v, float("inf")))
+            return torch.clamp(r.amin((-1, -2)), max=1.0)
+
+        self.a_s_max = max_step(self.s, self.ds)  # (B,)
+        self.a_lam_max = max_step(self.lam, self.dlam)
+        return torch.minimum(alphas[None, :], self.a_s_max[:, None])
+
+    def violation(self, us_c, alphas_b):
+        """Primal cone residual ||g(u_a) - s_a||^2 on the active cones per
+        candidate (B, A): the IPM term of the filter's violation channel
+        (without it a feasibility-restoring step from a cost-converged warm
+        start is rejected as a cost increase)."""
+        g_a = friction_cone_values(self.settings, us_c, self.info)  # (B, A, N, nc)
+        s_a = self.s[:, None] + alphas_b[..., None, None] * self.ds[:, None]
+        return (self.flags[:, None] * (g_a - s_a) ** 2).sum((-1, -2))
+
+    def base_violation(self):
+        return (self.flags * (self.g - self.s) ** 2).sum((-1, -2))
+
+    def step(self, step_size, any_ok):
+        """Accept the primal step: slack along it, duals by their own
+        fraction-to-boundary step unless tied to the primal one; then mu
+        along its schedule."""
+        st = self.settings
+        a_dual = step_size if st.ipm_dual_step_from_primal else torch.where(
+            any_ok, self.a_lam_max, torch.zeros_like(self.a_lam_max))
+        self.s = torch.clamp(self.s + step_size[:, None, None] * self.ds, min=1e-10)
+        self.lam = torch.clamp(self.lam + a_dual[:, None, None] * self.dlam, min=1e-10)
+        self.mu = max(st.ipm_mu_target, self.mu * st.ipm_mu_decay)
 
 
 def sqp_solve(
@@ -117,25 +246,33 @@ def sqp_solve(
     x_init,  # (B, nx) measured initial states
     x_warm,  # (B, N+1, nx) warm-start state trajectories
     u_warm,  # (B, N, nu)
+    cone_warm=None,  # cone="ipm": optional (s, lam) warm start, (B, N, nc) each
     merit_sums=None,
     linearize=None,
 ) -> SqpSolution:
     """Run ``settings.sqp_iterations`` Gauss-Newton iterations per scenario.
 
     merit_sums: the evaluator of ops/merit_kernel.make_merit_sums for
-    ``merit="pallas"``; linearize: the linearizer of
-    ops/linearize_kernel.make_node_linearizer for ``linearize="pallas"``;
-    each built from the model when not given.  The warm-start tensors are
-    not modified."""
+    ``merit="pallas"``; linearize: a linearizer f(xs, us, xns, refs,
+    settings) (ops/linearize_kernel.make_node_linearizer for
+    ``linearize="pallas"``), called with each iteration's settings; each
+    built from the model when not given.  The warm-start tensors are not
+    modified."""
     _check_settings(info, settings)
     Bb, nx = x_init.shape
     xs = x_warm.clone()
     xs[:, 0] = x_init  # the initial state is a hard parameter: pin node 0
     us = u_warm
     dtype, device = x_init.dtype, x_init.device
+    n_alphas = len(settings.linesearch_alphas)
+    if settings.cone == "ipm" and n_alphas == 0:
+        raise NotImplementedError(
+            "cone='ipm' needs linesearch candidates for its fraction-to-boundary cap; "
+            "use a non-empty linesearch_alphas"
+        )
 
-    lqr = solve_lqr_pallas if settings.riccati == "pallas" else solve_lqr
-    if settings.merit == "pallas" and len(settings.linesearch_alphas) and merit_sums is None:
+    lqr = _lqr_backend(settings)
+    if settings.merit == "pallas" and n_alphas and merit_sums is None:
         from ..ops.merit_kernel import make_merit_sums
 
         merit_sums = make_merit_sums(model, info, settings)
@@ -145,19 +282,23 @@ def sqp_solve(
 
             linearize = make_node_linearizer(model, info, settings, Q, R)
         else:
-            linearize = lambda x, u, xn, r: linearize_node_structured(model, info, settings, Q, R, x, u, xn, r)
+            linearize = lambda x, u, xn, r, s: linearize_node_structured(model, info, s, Q, R, x, u, xn, r)
     masks = eq_mask_from_flags(refs.contact_flags)
     dx0 = torch.zeros(Bb, nx, dtype=dtype, device=device)
     step_size = torch.ones(Bb, dtype=dtype, device=device)
     alphas = _alphas_tensor(tuple(settings.linesearch_alphas), dtype, device)
+    ipm = _ConeIpm(settings, info, refs, us, cone_warm) if settings.cone == "ipm" else None
     gains = cost = defect = eq = None
-    for _ in range(settings.sqp_iterations):
-        nodes = linearize(xs[:, :-1], us, xs[:, 1:], refs)
+    for it in range(settings.sqp_iterations):
+        settings_it = iteration_settings(settings, it)
+        nodes = linearize(xs[:, :-1], us, xs[:, 1:], refs, settings_it)
+        if ipm is not None:
+            nodes = ipm.condense(nodes, us)
         sol = lqr(nodes, masks, dx0)
         gains = sol.K
         e_masked = masks * nodes.e
 
-        if len(settings.linesearch_alphas) == 0:
+        if n_alphas == 0:
             # pure RTI: full Newton step, diagnostics of the pre-step point
             xs = xs + sol.dx
             us = us + sol.du
@@ -167,12 +308,13 @@ def sqp_solve(
             eq = e_masked.abs().sum((-1, -2))
             continue
 
-        xs_c = xs[:, None] + alphas[None, :, None, None] * sol.dx[:, None]  # (B, A, N+1, nx)
-        us_c = us[:, None] + alphas[None, :, None, None] * sol.du[:, None]
+        # (B, A) candidates: the same for every lane unless the ipm caps them
+        alphas_b = ipm.directions(sol.du, alphas) if ipm is not None else alphas[None, :].expand(Bb, n_alphas)
+        xs_c = xs[:, None] + alphas_b[..., None, None] * sol.dx[:, None]  # (B, A, N+1, nx)
+        us_c = us[:, None] + alphas_b[..., None, None] * sol.du[:, None]
         refs_a = NodeRefs(*(f[:, None] for f in refs))  # broadcast over candidates
         if settings.merit == "pallas":
-            n_a = alphas.shape[0]
-            bc = lambda a: a[:, None].expand((Bb, n_a) + a.shape[1:])
+            bc = lambda a: a[:, None].expand((Bb, n_alphas) + a.shape[1:])
             sums = merit_sums(
                 xs_c[:, :, :-1], us_c, xs_c[:, :, 1:], bc(refs.contact_flags), bc(refs.swing_vref),
                 bc(refs.swing_pref), bc(refs.dt),
@@ -180,12 +322,15 @@ def sqp_solve(
             d1_a = sums[..., 0].sum(-1)
             viols_a = (sums[..., 1] + sums[..., 3]).sum(-1)
             e1_a = sums[..., 2].sum(-1)
-            costs_a = _candidate_costs(model, info, settings, Q, R, xs_c[:, :, :-1], us_c, refs_a)
+            costs_a = _candidate_costs(model, info, settings_it, Q, R, xs_c[:, :, :-1], us_c, refs_a)
         else:
-            costs_a, viols_a, d1_a, e1_a = _performance(model, info, settings, Q, R, xs_c, us_c, refs_a)
+            costs_a, viols_a, d1_a, e1_a = _performance(model, info, settings_it, Q, R, xs_c, us_c, refs_a)
         # alpha = 0 baseline from the node data the linearization holds
         cost0 = nodes.cost.sum(-1)
         viol0 = (nodes.c**2).sum((-1, -2)) + (e_masked**2).sum((-1, -2))
+        if ipm is not None:
+            viols_a = viols_a + ipm.violation(us_c, alphas_b)
+            viol0 = viol0 + ipm.base_violation()
         d1_0 = nodes.c.abs().sum((-1, -2))
         e1_0 = e_masked.abs().sum((-1, -2))
         accepted = _filter_accept(cost0[:, None], viol0[:, None], costs_a, viols_a)  # (B, A)
@@ -193,15 +338,18 @@ def sqp_solve(
         idx = torch.argmax(accepted.to(torch.int32), dim=1)
         any_ok = accepted.any(dim=1)
         pick = lambda a: a.gather(1, idx[:, None])[:, 0]
-        step_size = torch.where(any_ok, alphas[idx], torch.zeros_like(cost0))
+        step_size = torch.where(any_ok, pick(alphas_b), torch.zeros_like(cost0))
         xs = xs + step_size[:, None, None] * sol.dx
         us = us + step_size[:, None, None] * sol.du
         cost = torch.where(any_ok, pick(costs_a), cost0)
         defect = torch.where(any_ok, pick(d1_a), d1_0)
         eq = torch.where(any_ok, pick(e1_a), e1_0)
+        if ipm is not None:
+            ipm.step(step_size, any_ok)
+    # feedback gains from the last QP (OCS2 publishes the gains of the QP it just solved)
     return SqpSolution(
         t_nodes=t_nodes, x_traj=xs, u_traj=us, K=gains, cost=cost, defect_norm=defect, eq_norm=eq,
-        step_size=step_size,
+        step_size=step_size, cone_slack=None if ipm is None else ipm.s, cone_dual=None if ipm is None else ipm.lam,
     )
 
 

@@ -8,13 +8,16 @@ tick, the MPC worker); a graph replay is one launch.
 """
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import torch
 
 
 class GraphedCall:
     """``fn(*inputs)`` (tensors on one CUDA device in, a tensor or a tuple
-    of tensors out) replayed from a CUDA graph.  The first call runs fn op
+    or named tuple of tensors out, whose fields may be None) replayed from
+    a CUDA graph.  The first call runs fn op
     by op on a side stream (it loads the kernels' libraries and settles the
     allocator) and returns its result, then captures the graph; a later call
     copies its input tensors into the graph's static buffers, replays the
@@ -36,9 +39,11 @@ class GraphedCall:
         for static, t in zip(self._static, inputs):
             static.copy_(t)
         self._graph.replay()
-        if isinstance(self._out, torch.Tensor):
-            return self._out.clone()
-        return type(self._out)(*(o.clone() for o in self._out))
+        out = self._out
+        if isinstance(out, torch.Tensor):
+            return out.clone()
+        fields = [None if o is None else o.clone() for o in out]
+        return type(out)(*fields) if hasattr(out, "_fields") else tuple(fields)
 
     def _run_and_capture(self, inputs):
         dev = inputs[0].device
@@ -49,8 +54,17 @@ class GraphedCall:
         torch.cuda.current_stream(dev).wait_stream(side)
         self._static = [t.clone() for t in inputs]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._out = self._fn(*self._static)
+        # no automatic garbage collection while capturing: a collection that frees another
+        # graph (say, of a runner gone out of scope) resets it, which a capture forbids and
+        # which invalidates this capture (torch.cuda.graph collects once before it begins)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._out = self._fn(*self._static)
+        finally:
+            if collecting:
+                gc.enable()
         self._graph = graph
         return out
 

@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --profile   # phases 1-2, then a profile of the B=256 solve
+    python3 chip_smoke.py --variants  # phases 1-2, then phase 15 (the solver variants)
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: CUDA must be available; prints the card's name and power limit;
@@ -135,15 +136,46 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      progressed fractions, wall time per episode second, scenario-seconds
      per second, each graph's replay time, its device activities and busy
      share;
+ 15. the solver variants on G1 (configs/g1/* on the same URDF):
+     (a) the hard and ipm friction cones on tests/test_torch_cone.py's lean
+     stress (mu 0.05, vx weight 200, a 0.3 s horizon; 4 SQP iterations, the
+     hard cone's continuation at cone_mu_decay 0.1; the ipm from the soft
+     result), production backends on the card in float64 against the same
+     on the CPU (the plain versions) at phase 7's bars plus the ipm's slack
+     and dual 1e-5, every stance margin above -0.5 N, and one solve of each
+     captured in a CUDA graph (within 1e-9 of the op-by-op solve) whose replay,
+     under torch.profiler, must run K1, K2+K3 and K4 once per SQP iteration,
+     as the wrappers launch them op by op; then float32 B = 256 on the trot front end,
+     soft (1 iteration), hard and ipm (4), five candidates, in turns:
+     solves/s and wrapper launches per solve (one per iteration);
+     (b) MpcRunner(solver="ilqr"): float64, a cold and two warm replans at
+     ddp_iterations=2 on the card (CUDA-graph replays) against the CPU at
+     phase 7's bars; then a float32 dummy loop at ddp_iterations=8, 0.2 s at
+     400 Hz MRT / 50 Hz MPC, trot from 0.1 s: the replayed replans' p50/p99
+     on CUDA events, the device activities of each graph kind (profiler) and
+     so of a warm replan, base z's range (no bar: no reference run of the
+     iLQR on G1), every state finite;
+     (c) riccati "parallel" (penalty 1e2, where the dense scan is
+     conditioned) and "parallel_sqrt" (1e4), five candidates, in the G1
+     solve, float64 B = 8 card vs CPU at phase 7's bars; the LQR solves alone on the front
+     end's float32 B = 256 stage data: parallel_sqrt (penalty 1e4) beside
+     K2+K3 and the plain sequential sweep, on CUDA events;
+     (d) SRBD (centroidalModelType 1 at the initial joint state; structured,
+     sequential, xla: the kernels refuse SRBD): MpcRunner float64 card vs
+     CPU over a cold and a warm replan at phase 7's bars, then the float32
+     replan's ms (op by op);
 then a JSON line of G1's solve and loop results, a JSON line of the
 controller's, a JSON line of phase 13's, a JSON line of phase 14's, a JSON
-line of per-kernel results (with each model kernel's G1 figures under
-"g1", K5's at the device WBC's shapes, with its launches per controller
-tick, and every kernel's launches per cascade replan and tick) and, last,
-the device JSON line.
+line of phase 15's, a JSON line of per-kernel results (with each model
+kernel's G1 figures under "g1", K5's at the device WBC's shapes, with its
+launches per controller tick, every kernel's launches per cascade replan
+and tick, and K1's, K2+K3's and K4's per hard-cone and ipm solve) and,
+last, the device JSON line.
 With --profile, phases 1-2 are followed by torch.profiler over warm B=256
 float32 solves of the production and "structured" configurations (device
 busy share, device time by kernel, the host's synchronising runtime calls).
+With --variants, phases 1-2 are followed by phase 15 alone and its JSON
+line.
 
 The robot of phases 3-9 is H1-shaped (10 leg joints, 4 sole contacts, upper
 body welded into the base, ~47 kg): nx = nu = 22 and ne = 16 as for H1.
@@ -202,6 +234,7 @@ from bipedal_control_tpu_torch.runtime.rt_runner import RtControllerRunner
 from bipedal_control_tpu_torch.sim.dummy_loop import run_dummy_loop
 from bipedal_control_tpu_torch.solver.riccati import _regs, riccati_plain
 from bipedal_control_tpu_torch.solver.sqp import build_refs, initial_trajectory, sqp_solve, warm_start_trajectories
+from bipedal_control_tpu_torch.utils.cuda_graph import GraphedCall
 from bipedal_control_tpu_torch.utils.precision import set_full_f32_matmul
 from bipedal_control_tpu_torch.wbc import qp as wbc_qp_module
 from bipedal_control_tpu_torch.wbc.qp import kkt_matrix
@@ -344,8 +377,8 @@ def weights(nx: int, nu: int):
 
 # ------------------------------------------------------------------ helpers
 def rel_err(got, ref) -> float:
-    """max |got - ref| / max(1, max |ref|), in float64."""
-    got, ref = got.double(), ref.double()
+    """max |got - ref| / max(1, max |ref|), in float64 (on the CPU)."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
@@ -2199,6 +2232,331 @@ def phase_cascade(device, g1, batch: int = 64, duration: float = 1.0) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ solver variants
+# phase 15(a)'s lean stress (tests/test_torch_cone.py): mu 0.05 ground, vx
+# weight 200 with the angular-momentum rows free, a 0.3 s horizon, momentum
+# target 1.0 and 0.3 m; the hard cone's continuation at cone_mu_decay 0.1
+LEAN_ITERS = 4  # SQP iterations of a hard or ipm solve
+VARIANT_BATCH = 256  # 15(a)'s and 15(c)'s timed batch
+ILQR_LOOP_S = 0.2  # 15(b)'s dummy loop
+VARIANT_BARS = dict(PARITY_BARS, cone_slack=1e-5, cone_dual=1e-5)
+
+
+def lean_problem(iface, backends: str, cone: str):
+    """(solver, inputs) of the lean stress on iface's device and dtype: the
+    batched solver of ``backends`` (a CONFIGS key) for ``cone``, and one
+    lane's references, node grid, initial state and cold start."""
+    import copy
+
+    from bipedal_control_tpu_torch.reference.target import TargetTrajectories
+
+    linearize, riccati, merit = CONFIGS[backends]
+    settings = dataclasses.replace(
+        iface.settings, horizon=0.3, friction_coefficient=0.05, cone=cone, cone_mu_decay=0.1,
+        sqp_iterations=1 if cone == "soft" else LEAN_ITERS, linesearch_alphas=OcpSettings().linesearch_alphas,
+        linearize=linearize, riccati=riccati, merit=merit)
+    Q = iface.Q.clone()
+    Q[0, 0] = 200.0
+    Q[3:6, 3:6] = 0.0
+    task = copy.deepcopy(iface.task)
+    task.mpc.time_horizon = 0.3
+    rm = dataclasses.replace(iface, settings=settings, task=task).make_reference_manager()
+    x0 = np.asarray(iface.initial_state)
+    s0, s1 = x0.copy(), x0.copy()
+    s0[0] = s1[0] = 1.0
+    s1[6] += 0.3
+    rm.set_target(TargetTrajectories(times=np.array([0.0, 0.3]), states=np.stack([s0, s1]),
+                                     inputs=np.zeros((2, iface.info.input_dim))))
+    fr = rm.freeze(0.0)
+    refs = build_refs(iface.info, fr.gait, fr.swing, fr.target, fr.t_nodes)
+    x = torch.as_tensor(x0, dtype=iface.dtype, device=iface.device)[None]
+    xs, us = initial_trajectory(iface.info, refs, x, settings.num_intervals + 1)
+    solver = make_batched_solver(iface.model, iface.info, settings, Q, iface.R, device=iface.device)
+    return solver, (refs, fr.t_nodes[None], x, xs, us)
+
+
+def lean_solve(iface, backends: str, cone: str):
+    """The lean stress's solution for cone: soft, 12 chained one-iteration
+    solves; hard, 2 chained solves; ipm, one solve from the soft result."""
+    solver, (refs, t_nodes, x, xs, us) = lean_problem(iface, backends, cone)
+    if cone == "ipm":
+        soft = lean_solve(iface, backends, "soft")
+        xs, us = soft.x_traj, soft.u_traj
+    for _ in range({"soft": 12, "hard": 2, "ipm": 1}[cone]):
+        sol = solver(refs, t_nodes, x, xs, us)
+        xs, us = sol.x_traj, sol.u_traj
+    return sol
+
+
+def variant_errors(a, b) -> dict:
+    return {n: rel_err(getattr(a, n), getattr(b, n)) for n in VARIANT_BARS if getattr(b, n) is not None}
+
+
+def cone_margin(iface, sol, cone: str) -> float:
+    """The least friction-cone margin (N) over the stance cones of the
+    lean stress's solution."""
+    from bipedal_control_tpu_torch.ocp.problem import friction_cone_values
+
+    solver, (refs, *_) = lean_problem(iface, "plain", cone)
+    g = friction_cone_values(solver.settings, sol.u_traj, iface.info)
+    return float(g[refs.contact_flags > 0.5].min())
+
+
+def variants_cones(device, g1, out: dict) -> None:
+    """15(a): the hard and ipm SQP on the card (production backends, K1,
+    K2+K3, K4 every iteration), float64 against the plain versions on the
+    CPU; the kernels' runs per solve by the profiler; float32 B = 256
+    solves/s for soft, hard and ipm on the G1 trot front end."""
+    card, cpu = g1.to(device=device, dtype=torch.float64), g1.to(device="cpu", dtype=torch.float64)
+    for cone in ("hard", "ipm"):
+        got, want = lean_solve(card, "production", cone), lean_solve(cpu, "production", cone)
+        errs = variant_errors(got, want)
+        same_step = bool(torch.equal(got.step_size.cpu(), want.step_size))
+        margin = cone_margin(cpu, want, cone)
+        solver, inputs = lean_problem(card, "production", cone)
+        reset_launches()
+        solver(*inputs)
+        launched = read_launches()
+        # the solve captured in a CUDA graph (as MpcRunner graphs these settings) and one
+        # replay traced on the device: after phases 1-14 a trace of the solve run op by op
+        # has missed one K1 record (3 of 4, in 8 of 10 windows over four calls, with or
+        # without the host's calls traced; the wrappers launched 4 each time), while the
+        # traces of graph replays (phases 11-14) have missed none
+        kernels = ("linearize", "riccati", "merit")
+        nr = len(NodeRefs._fields)
+        refs, *rest = inputs
+        flat = [*refs, *rest]
+        graphed = GraphedCall(lambda *f: solver(NodeRefs(*f[:nr]), *f[nr:]))
+        first = graphed(flat)
+        dev, _ = trace(lambda: graphed(flat), cpu=False)
+        replay = graphed(flat)
+        ran = kernel_runs(dev)
+        replay_err = max(rel_err(a, b) for a, b in zip(replay, first) if a is not None)
+        out[cone] = {"f64_errors": errs, "step_size": got.step_size.tolist(), "least_margin_N": margin,
+                     "kernel_runs_per_solve": ran, "wrapper_launches_per_solve": launched}
+        print(f"[15 variants] (a) {cone} cone, G1 lean stress, float64 card production vs CPU plain: "
+              + " ".join(f"{n} {v:.2e}" for n, v in errs.items()) + f" step_size equal {same_step} "
+              f"({got.step_size.tolist()}); least stance margin {margin:.4f} N; kernel runs per solve "
+              f"(profiler, a CUDA-graph replay of the solve) {ran}; the wrappers' launches per solve (op by op) "
+              f"{launched}; the replay vs the op-by-op solve {replay_err:.2e}")
+        require(all(v <= VARIANT_BARS[n] for n, v in errs.items()) and same_step, f"{cone} f64 parity failed: {errs}")
+        require(margin > -0.5, f"{cone}: least stance margin {margin:.3f} N (bar -0.5)")
+        require(replay_err <= 1e-9, f"{cone}: the graph replay of the solve differs from its op-by-op run")
+        require(all(ran[k] == launched[k] == LEAN_ITERS for k in kernels),
+                f"{cone}: K1, K2+K3 and K4 must run once per SQP iteration ({LEAN_ITERS}); the profiler saw "
+                f"{ran}, the wrappers launched {launched}")
+    # float32 B = 256 on the trot front end: soft (one iteration), hard and ipm (LEAN_ITERS)
+    B, steps = VARIANT_BATCH, 5
+    iface32 = g1.to(device=device, dtype=torch.float32)
+    out["b256"] = {}
+    for cone in ("soft", "hard", "ipm", "ipm", "hard", "soft"):
+        settings = dataclasses.replace(g1_settings(iface32.settings, "production"), cone=cone,
+                                       sqp_iterations=1 if cone == "soft" else LEAN_ITERS,
+                                       linesearch_alphas=OcpSettings().linesearch_alphas)
+        solver = make_batched_solver(iface32.model, iface32.info, settings, iface32.Q, iface32.R, device=device)
+        refs, t_b, x_b, xs, us = g1_front_end(dataclasses.replace(iface32, settings=settings), B, None)
+        for _ in range(2):
+            sol = solver(refs, t_b, x_b, xs, us)
+            xs, us = sol.x_traj, sol.u_traj
+        torch.cuda.synchronize()
+        reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(steps):
+            sol = solver(refs, t_b, x_b, xs, us)
+            xs, us = sol.x_traj, sol.u_traj
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / steps
+        counts = read_launches()
+        require(all(bool(torch.isfinite(getattr(sol, f)).all()) for f in ("x_traj", "u_traj", "K")),
+                f"{cone} B=256: non-finite output")
+        run = {"solves_per_s": B * 1000.0 / ms, "ms_per_solve": ms, "iterations": settings.sqp_iterations,
+               "launches_per_solve": {k: v / steps for k, v in counts.items()},
+               "defect_l1": float(sol.defect_norm.double().mean())}
+        out["b256"].setdefault(cone, []).append(run)
+        print(f"[15 variants] (a) float32 B={B} {cone} ({settings.sqp_iterations} SQP iterations, 5 candidates, "
+              f"production): {run['solves_per_s']:.1f} solves/s ({ms:.3f} ms/solve on CUDA events); defect_l1 "
+              f"mean {run['defect_l1']:.4e}; wrapper launches per solve {run['launches_per_solve']}")
+        require(all(run["launches_per_solve"][k] == settings.sqp_iterations for k in ("linearize", "riccati", "merit")),
+                f"{cone} B=256: K1, K2+K3, K4 must launch once per iteration: {counts}")
+
+
+def variants_ilqr(device, g1, out: dict) -> None:
+    """15(b): MpcRunner(solver="ilqr") on the card: float64 against the CPU
+    over a cold and two warm replans at ddp_iterations=2 (the card's replay
+    CUDA graphs), then a float32 dummy loop at ddp_iterations=8."""
+    rng = np.random.default_rng(41)
+    x0 = g1.initial_state
+    times = (0.0, 0.02, 0.04)
+    xs = [x0 + rng.normal(scale=0.005, size=x0.shape) for _ in times]
+    sols = {}
+    for where in ("card", "cpu"):
+        iface = g1.to(device=device if where == "card" else "cpu", dtype=torch.float64)
+        runner = MpcRunner(iface, solver="ilqr", ddp_iterations=2)
+        require(runner.graphed == (where == "card"), f"ilqr runner on the {where}: graphed {runner.graphed}")
+        runner.rm.set_gait(iface.task.gait_library["trot"], 0.1)
+        sols[where] = [runner.advance(t, torch.as_tensor(x, device=iface.device)) for t, x in zip(times, xs)]
+    errs = [{n: rel_err(getattr(a, n).cpu(), getattr(b, n)) for n in PARITY_BARS}
+            for a, b in zip(sols["card"], sols["cpu"])]
+    for k, (what, e) in enumerate(zip(("cold", "warm", "warm (graph replays)"), errs)):
+        print(f"[15 variants] (b) float64 iLQR {what} replan, card vs CPU: "
+              + " ".join(f"{n} {v:.2e}" for n, v in e.items()))
+        require(all(e[n] <= PARITY_BARS[n] for n in PARITY_BARS), f"iLQR f64 {what} replan parity failed: {e}")
+    out["ilqr_f64_errors"] = errs
+    # float32 dummy loop at ddp_iterations=8
+    iface32 = g1.to(device=device, dtype=torch.float32)
+    mpc = MpcRunner(iface32, solver="ilqr", ddp_iterations=8)
+    mpc.rm.set_gait(iface32.task.gait_library["trot"], 0.1)
+    advance, timed = mpc.advance, []
+
+    def timed_advance(t, x):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        ev[0].record()
+        sol = advance(t, x)
+        ev[1].record()
+        torch.cuda.synchronize()
+        timed.append((ev[0].elapsed_time(ev[1]), time.perf_counter() - t0))
+        return sol
+
+    mpc.advance = timed_advance
+    duration = ILQR_LOOP_S
+    t0 = time.perf_counter()
+    res = run_dummy_loop(iface32, mpc, iface32.initial_state, duration=duration, mrt_frequency=400.0,
+                         mpc_frequency=50.0)
+    wall = time.perf_counter() - t0
+    replay_ms = np.array([d for d, _ in timed[2:]])
+    z = res.states[:, 8]
+    graphs = mpc._graphs or {}
+    # a trace of ~1.3e5 activities takes seconds: the cold graph (the warm one's size) is not traced
+    kinds = {k: device_profile(g._graph.replay)["activities"] for k, g in graphs.items() if k != "cold"}
+    per_replan = kinds.get("warm", 0) + 7 * kinds.get("iterate", 0) + kinds.get("finish", 0)
+    out["ilqr_loop"] = {"duration_s": duration, "replans": len(timed), "wall_s": wall,
+                        "first_replans_ms": [d for d, _ in timed[:2]],
+                        "replan_p50_ms": float(np.percentile(replay_ms, 50)),
+                        "replan_p99_ms": float(np.percentile(replay_ms, 99)),
+                        "host_ms_per_replay_replan": float(np.mean([h for _, h in timed[2:]]) * 1e3),
+                        "device_activities_per_graph": kinds, "device_activities_per_warm_replan": per_replan,
+                        "finite": bool(np.isfinite(res.states).all()), "base_z_min": float(z.min()),
+                        "base_z_max": float(z.max())}
+    v = out["ilqr_loop"]
+    print(f"[15 variants] (b) float32 iLQR dummy loop, ddp_iterations=8, {duration} s at 400 Hz MRT / 50 Hz MPC "
+          f"({wall:.1f} s wall): {v['replans']} replans; the first two (cold, warm: op by op, then captured) "
+          f"{v['first_replans_ms'][0]:.1f} and {v['first_replans_ms'][1]:.1f} ms; graph-replayed replans p50 "
+          f"{v['replan_p50_ms']:.2f} ms, p99 {v['replan_p99_ms']:.2f} ms (CUDA events; host "
+          f"{v['host_ms_per_replay_replan']:.2f} ms); device activities per graph {kinds} -> per warm replan "
+          f"{per_replan}; base z in [{v['base_z_min']:.4f}, {v['base_z_max']:.4f}] (no bar); finite {v['finite']}")
+    require(v["finite"], "iLQR dummy loop: non-finite state")
+    require(set(graphs) >= {"cold", "warm", "iterate", "finish"}, f"iLQR graphs: {sorted(graphs)}")
+
+
+def variants_parallel(device, g1, out: dict) -> None:
+    """15(c): riccati "parallel" and "parallel_sqrt" in the G1 solve,
+    float64 B = 8 card vs CPU; then the LQR solves alone on the G1 front
+    end's stage data at B = 256, float32: parallel_sqrt beside K2+K3 and
+    the plain sequential sweep."""
+    from bipedal_control_tpu_torch.solver import parallel_riccati
+    from bipedal_control_tpu_torch.solver.riccati import solve_lqr, solve_lqr_pallas
+    from bipedal_control_tpu_torch.solver.sqp import eq_mask_from_flags
+
+    # the penalties: on G1's stage data the dense scan's result moves under a one-ulp change
+    # of its inputs by 2.5e-4 (penalty 1e2), 3.8 (1e4) and 4e3 (1e6) of a du of ~115 N, the
+    # reference's as the port's (ROADMAP queue 3), so it is held where it is conditioned
+    for riccati, penalty in (("parallel", 1e2), ("parallel_sqrt", 1e4)):
+        sols = {}
+        for where in ("card", "cpu"):
+            iface = g1.to(device=device if where == "card" else "cpu", dtype=torch.float64)
+            settings = dataclasses.replace(g1_settings(iface.settings, "production"), riccati=riccati,
+                                           riccati_penalty=penalty, linesearch_alphas=OcpSettings().linesearch_alphas)
+            solver = make_batched_solver(iface.model, iface.info, settings, iface.Q, iface.R, device=iface.device)
+            sols[where] = solver(*g1_front_end(dataclasses.replace(iface, settings=settings), 8, 21))
+        errs = solution_errors(sols["card"], sols["cpu"])
+        same_step = bool(torch.equal(sols["card"].step_size.cpu(), sols["cpu"].step_size))
+        out[riccati] = {"f64_errors": errs}
+        print(f"[15 variants] (c) riccati={riccati} (penalty {penalty:g}, 5 candidates) G1 float64 B=8 card vs CPU: "
+              + " ".join(f"{n} {v:.2e}" for n, v in errs.items()) + f" step_size equal {same_step} "
+              f"({sols['card'].step_size.tolist()})")
+        require(all(errs[n] <= PARITY_BARS[n] for n in PARITY_BARS) and same_step, f"{riccati} f64 parity: {errs}")
+    iface32 = g1.to(device=device, dtype=torch.float32)
+    settings = g1_settings(iface32.settings, "production")
+    refs, t_b, x_b, xs, us = g1_front_end(dataclasses.replace(iface32, settings=settings), VARIANT_BATCH, None)
+    lin = linearize_kernel.make_node_linearizer(iface32.model, iface32.info, settings, iface32.Q, iface32.R,
+                                                static=iface32.circuit)
+    nodes = lin(xs[:, :-1], us, xs[:, 1:], refs)
+    masks = eq_mask_from_flags(refs.contact_flags)
+    dx0 = torch.zeros_like(x_b)
+    solves = {"parallel_sqrt": lambda: parallel_riccati.solve_lqr_parallel_sqrt(nodes, masks, dx0, 1e4),
+              "pallas (K2+K3)": lambda: solve_lqr_pallas(nodes, masks, dx0),
+              "sequential (plain)": lambda: solve_lqr(nodes, masks, dx0)}
+    times = {k: cuda_time_ms(fn, 3) for k, fn in solves.items()}
+    ref = solves["sequential (plain)"]()
+    sq = solves["parallel_sqrt"]()
+    finite = bool(torch.isfinite(sq.du).all())
+    out["lqr_b256_f32_ms"] = times
+    out["lqr_b256_f32_sqrt_finite"] = finite
+    out["lqr_b256_f32_sqrt_vs_sequential_du"] = rel_err(sq.du, ref.du) if finite else None
+    # no bar on the float32 square-root scan's values: on this cold start's
+    # stage data the reference's own solve_lqr_parallel_sqrt is not finite in
+    # float32 either (ROADMAP queue 3)
+    print(f"[15 variants] (c) float32 B={VARIANT_BATCH} G1 LQR solve (the cold start's stage data): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in times.items()) + f" (CUDA events); parallel_sqrt (penalty 1e4) "
+          f"finite {finite}, du vs the sequential sweep {out['lqr_b256_f32_sqrt_vs_sequential_du']}")
+
+
+def variants_srbd(device, g1, out: dict) -> None:
+    """15(d): G1 with centroidalModelType 1 (SRBD at the initial joint
+    state; linearize "structured", riccati "sequential", merit "xla": the
+    kernels refuse SRBD, as the reference's do): MpcRunner float64 card vs
+    CPU over a cold and a warm replan (1e-5), then the float32 replan's ms."""
+    def srbd(iface):
+        info = dataclasses.replace(iface.info, model_type=1,
+                                   q_j_nominal=tuple(float(v) for v in iface.initial_state[12:]))
+        return dataclasses.replace(iface, info=info, circuit=None, settings=g1_settings(iface.settings, "plain"))
+
+    sols = {}
+    for where in ("card", "cpu"):
+        iface = srbd(g1.to(device=device if where == "card" else "cpu", dtype=torch.float64))
+        runner = MpcRunner(iface)
+        runner.rm.set_gait(iface.task.gait_library["trot"], 0.1)
+        x = torch.as_tensor(iface.initial_state, device=iface.device)
+        sols[where] = [runner.advance(t, x) for t in (0.0, 0.02)]
+    errs = [solution_errors(a, b) for a, b in zip(sols["card"], sols["cpu"])]
+    for what, e in zip(("cold", "warm"), errs):
+        print(f"[15 variants] (d) SRBD float64 {what} replan card vs CPU: " + " ".join(f"{n} {v:.2e}" for n, v in e.items()))
+        require(all(e[n] <= PARITY_BARS[n] for n in PARITY_BARS), f"SRBD f64 {what} replan parity failed: {e}")
+    iface32 = srbd(g1.to(device=device, dtype=torch.float32))
+    runner = MpcRunner(iface32)
+    runner.rm.set_gait(iface32.task.gait_library["trot"], 0.1)
+    x = torch.as_tensor(iface32.initial_state, dtype=torch.float32, device=device)
+    ms = []
+    for k in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        sol = runner.advance(0.02 * k, x)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    require(bool(torch.isfinite(sol.x_traj).all()), "SRBD float32 replan: non-finite")
+    out["srbd"] = {"f64_errors": errs, "replan_ms": ms[1:], "replan_p50_ms": float(np.percentile(ms[1:], 50))}
+    print(f"[15 variants] (d) SRBD float32 replan (op by op, structured / sequential / xla): p50 "
+          f"{out['srbd']['replan_p50_ms']:.2f} ms over 5 warm replans (cold {ms[0]:.2f} ms)")
+
+
+def phase_variants(device, g1) -> dict:
+    """Phase 15: the solver variants on G1 ((a) hard and ipm cones, (b) the
+    iLQR MPC, (c) the parallel Riccati scans, (d) SRBD)."""
+    t_phase = time.perf_counter()
+    out = {}
+    for part in (variants_cones, variants_ilqr, variants_parallel, variants_srbd):
+        t0 = time.perf_counter()
+        part(device, g1, out)
+        print(f"[15 variants] {part.__name__} {time.perf_counter() - t0:.1f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[15 variants] phase wall {out['phase_s']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
@@ -2246,6 +2604,9 @@ def main():
                        g1.circuit[0], (g1.info.state_dim, g1.info.input_dim, 16))
     if "--profile" in sys.argv[1:]:
         return phase_profile(model, info, device)
+    if "--variants" in sys.argv[1:]:
+        print(json.dumps({"variants": dict(phase_variants(device, g1), robot=g1_robot)}))
+        return 0
     ric = phase_riccati(device, libs["riccati"])
     mer = phase_merit(model, info, device, libs["merit"])
     lin = phase_linearize(model, info, device, libs["linearize"])
@@ -2260,6 +2621,8 @@ def main():
     wbc_batch = phase_wbc_batch(device, g1)
     dev_ctl = phase_device_controller(device, g1)
     cascade = phase_cascade(device, g1)
+    variants = phase_variants(device, g1)
+    per_hard, per_ipm = variants["hard"]["kernel_runs_per_solve"], variants["ipm"]["kernel_runs_per_solve"]
     per_cascade = cascade["parity_f64"]["profile"]
     per_replan = ctl["sync"]["kernel_runs_per_replan"]
     counts = runs[0]["launches"]  # the first production run at B=256: 10 solves
@@ -2271,19 +2634,22 @@ def main():
              registers=lin["registers"], g1=g1_entry(g1_res["linearize"], g1_counts["linearize"]),
              launches_per_controller_replan=per_replan["linearize"],
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["linearize"],
-             launches_per_cascade_tick=per_cascade["launches_per_tick"]["linearize"]),
+             launches_per_cascade_tick=per_cascade["launches_per_tick"]["linearize"],
+             launches_per_hard_cone_solve=per_hard["linearize"], launches_per_ipm_solve=per_ipm["linearize"]),
         dict(kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
                           src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
              b1_ms=ric["b1_ms"], registers=ric["registers"], g1=g1_entry(g1_res["riccati"], g1_counts["riccati"]),
              launches_per_controller_replan=per_replan["riccati"],
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["riccati"],
-             launches_per_cascade_tick=per_cascade["launches_per_tick"]["riccati"]),
+             launches_per_cascade_tick=per_cascade["launches_per_tick"]["riccati"],
+             launches_per_hard_cone_solve=per_hard["riccati"], launches_per_ipm_solve=per_ipm["riccati"]),
         dict(kernel_entry("merit sums (K4)", src + "merit.cu", "bipedal_control_tpu/ops/pallas_merit.py:253",
                           counts["merit"], mer),
              registers=mer["registers"], g1=g1_entry(g1_res["merit"], g1_counts["merit"]),
              launches_per_controller_replan=per_replan["merit"],
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["merit"],
-             launches_per_cascade_tick=per_cascade["launches_per_tick"]["merit"]),
+             launches_per_cascade_tick=per_cascade["launches_per_tick"]["merit"],
+             launches_per_hard_cone_solve=per_hard["merit"], launches_per_ipm_solve=per_ipm["merit"]),
         dict(k5_entry(wbc_k5, gj, dev_ctl),
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["gauss_jordan"],
              launches_per_cascade_tick=per_cascade["launches_per_tick"]["gauss_jordan"]),
@@ -2293,6 +2659,7 @@ def main():
     print(json.dumps({"device_wbc": {"robot": g1_robot, "k5": wbc_k5, "wbc_update_batch": wbc_batch,
                                      "controller": dev_ctl}}))
     print(json.dumps({"cascade": dict(cascade, robot=g1_robot)}))
+    print(json.dumps({"variants": dict(variants, robot=g1_robot)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

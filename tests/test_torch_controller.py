@@ -177,7 +177,7 @@ def test_sync_tick_reads_no_value_back(iface):
     rbd = _standing_rbd(iface)
     ctrl.starting(0.0, rbd)
     ctrl.update(0.0, rbd)
-    sol = SqpSolution(*(f[0] for f in ctrl.mpc.last_solution))
+    sol = SqpSolution(*(None if f is None else f[0] for f in ctrl.mpc.last_solution))
     x = torch.as_tensor(np.asarray(iface.initial_state))
     with _HostReads() as reads:
         cmd = ctrl.update(0.0025, rbd)

@@ -142,7 +142,7 @@ def test_replans_match_reference(runners):
         _assert_solution(got, ref)
         assert t_mpc.timer.count == k + 1
     # the feedback policy at random times inside the first interval pair
-    sol = SqpSolution(*(f[0] for f in t_mpc.last_solution))
+    sol = SqpSolution(*(None if f is None else f[0] for f in t_mpc.last_solution))
     for tq in rng.uniform(0.04, 0.07, size=3):
         xq = x0 + rng.normal(scale=0.005, size=x0.shape)
         pol = evaluate_policy(sol, float(tq), torch.as_tensor(xq))
@@ -206,10 +206,10 @@ def test_observability_matches_reference(runners):
     _fresh_trot(runners)
     t_mpc.reset()
     x0 = np.asarray(t_mpc.iface.initial_state)
-    sol = SqpSolution(*(f[0] for f in t_mpc.advance(0.0, torch.as_tensor(x0))))
+    sol = SqpSolution(*(None if f is None else f[0] for f in t_mpc.advance(0.0, torch.as_tensor(x0))))
     fr = t_mpc.last_frozen
     refs = NodeRefs(*(f[0] for f in build_refs(t_mpc.iface.info, fr.gait, fr.swing, fr.target, fr.t_nodes)))
-    j_sol = JSqpSolution(*(jnp.asarray(f.numpy()) for f in sol))
+    j_sol = JSqpSolution(*(None if f is None else jnp.asarray(f.numpy()) for f in sol))
     j_refs = JNodeRefs(*(jnp.asarray(f.numpy()) for f in refs))
     j_iface, t_iface = j_mpc.iface, t_mpc.iface
     got = observability.observe_constraints(t_iface.model, t_iface.info, t_iface.settings, sol, refs)
@@ -230,9 +230,12 @@ def test_observability_matches_reference(runners):
 
 
 def test_runner_refuses_what_the_port_lacks(ifaces):
+    """The port has both of the reference's replan backends: "ilqr" builds
+    (its replans are held by tests/test_torch_ddp.py) and an unknown solver
+    raises ValueError, as the reference's does."""
     _, t = ifaces
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        MpcRunner(t, solver="ilqr")
+    mpc = MpcRunner(t, solver="ilqr", ddp_iterations=3, ddp_penalty=50.0)
+    assert (mpc.ddp.iterations, mpc.ddp.constraint_penalty) == (3, 50.0)
     with pytest.raises(ValueError, match="unknown solver"):
         MpcRunner(t, solver="slq")
 
