@@ -23,6 +23,7 @@ from .model.kinematics import forward_kinematics, frame_position
 from .model.robot_model import RobotModel, from_description
 from .model.urdf import load_urdf
 from .ocp.problem import OcpSettings
+from .ops import linearize_kernel, merit_kernel
 from .ops.static_model import circuit_static
 from .reference.manager import ReferenceManager
 from .reference.target import CommandConfig, TargetTrajectories
@@ -140,6 +141,19 @@ def ocp_settings_from_task(task) -> OcpSettings:
         ipm_mu_decay=task.ipm.decrease_factor,
         ipm_fraction_to_boundary=task.ipm.fraction_to_boundary,
     )
+
+
+def production_settings(settings: OcpSettings, info: CentroidalModelInfo) -> OcpSettings:
+    """``settings`` on the kernels' backends where they implement the
+    configuration: K2+K3 ("pallas" riccati) takes every configuration, K1
+    and K4 ("pallas" linearize and merit) each where its ``refusal`` is
+    None; a refused kernel leaves the configuration's own backend."""
+    backends = {"riccati": "pallas"}
+    if linearize_kernel.refusal(info, settings) is None:
+        backends["linearize"] = "pallas"
+    if merit_kernel.refusal(info, settings) is None:
+        backends["merit"] = "pallas"
+    return dataclasses.replace(settings, **backends)
 
 
 def make_interface(

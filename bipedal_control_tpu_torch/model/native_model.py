@@ -25,8 +25,10 @@ _I = ctypes.POINTER(ctypes.c_int)
 
 
 def load_library() -> ctypes.CDLL:
-    """The host-model CDLL, built on first use; raises if it cannot be."""
-    lib = load_native("host_model")
+    """The host-model library, built on first use; raises if it cannot be.
+    Its calls keep the GIL (the control tick's short calls,
+    utils/native_build.py)."""
+    lib = load_native("host_model", hold_gil=True)
     lib.host_model_create.restype = ctypes.c_void_p
     lib.host_model_create.argtypes = [
         ctypes.c_int, ctypes.c_int, _I, _I, _D, _D, _D, _D, _D, _D, _D,

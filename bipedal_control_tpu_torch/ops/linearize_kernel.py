@@ -87,6 +87,19 @@ def linearize_cuda(params, defines, gain: float, integrator: str, xs, us, xns, f
 linearize_cuda.launches = 0
 
 
+def refusal(info, settings) -> str | None:
+    """Why the kernel does not implement this configuration, as the TPU
+    kernel does not (model_type != 0, the exact RK2 sensitivity, integrators
+    other than euler/rk2), or None where it does."""
+    if info.model_type != 0:
+        return "linearize kernel supports FullCentroidalDynamics only"
+    if settings.exact_rk2_sensitivity and settings.integrator == "rk2":
+        return "linearize kernel implements same-point RK2 only"
+    if settings.integrator not in ("euler", "rk2"):
+        return f"linearize kernel integrator {settings.integrator}"
+    return None
+
+
 def make_node_linearizer(model, info, settings, Q, R, static=None):
     """Linearizer f(xs, us, xns, refs, settings_it=None) -> LinearizedNode
     over any leading (scenario, node) dims: the kernel plus the cost
@@ -102,12 +115,9 @@ def make_node_linearizer(model, info, settings, Q, R, static=None):
 
     static: (kernel_defines, kernel_params tensor) of ops/static_model.py,
     prepared once by the caller; extracted from the model when not given."""
-    if info.model_type != 0:
-        raise NotImplementedError("linearize kernel supports FullCentroidalDynamics only")
-    if settings.exact_rk2_sensitivity and settings.integrator == "rk2":
-        raise NotImplementedError("linearize kernel implements same-point RK2 only")
-    if settings.integrator not in ("euler", "rk2"):
-        raise NotImplementedError(f"linearize kernel integrator {settings.integrator}")
+    reason = refusal(info, settings)
+    if reason is not None:
+        raise NotImplementedError(reason)
     defines, params = static if static is not None else circuit_static(model, info)
     gain = float(settings.position_error_gain)
 

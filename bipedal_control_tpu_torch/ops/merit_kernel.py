@@ -84,18 +84,27 @@ def merit_sums_cuda(params, defines, gain: float, integrator: str, xs, us, xns, 
 merit_sums_cuda.launches = 0
 
 
+def refusal(info, settings) -> str | None:
+    """Why the kernel does not implement this configuration, as the TPU
+    kernel does not (model_type != 0, integrators other than euler/rk2), or
+    None where it does."""
+    if info.model_type != 0:
+        return "merit kernel supports FullCentroidalDynamics only"
+    if settings.integrator not in ("euler", "rk2"):
+        return f"merit kernel integrator {settings.integrator}"
+    return None
+
+
 def make_merit_sums(model, info, settings, static=None):
     """Merit evaluator f(xs, us, xns, flags, vref, pref, dt) -> (..., 4) over
     any leading dims: the kernel for CUDA tensors, the plain version for CPU
-    tensors.  Raises for what the kernel does not implement, as the TPU
-    kernel does: model_type != 0 and integrators other than euler/rk2.
+    tensors.  Raises for what the kernel does not implement (``refusal``).
 
     static: (kernel_defines, kernel_params tensor) of ops/static_model.py,
     prepared once by the caller; extracted from the model when not given."""
-    if info.model_type != 0:
-        raise NotImplementedError("merit kernel supports FullCentroidalDynamics only")
-    if settings.integrator not in ("euler", "rk2"):
-        raise NotImplementedError(f"merit kernel integrator {settings.integrator}")
+    reason = refusal(info, settings)
+    if reason is not None:
+        raise NotImplementedError(reason)
     defines, params = static if static is not None else circuit_static(model, info)
     gain = float(settings.position_error_gain)
 

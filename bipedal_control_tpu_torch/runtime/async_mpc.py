@@ -209,6 +209,8 @@ class AsyncMpcRunner:
         self._rm_lock = threading.Lock()
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
+        # set by set_observation when a replan is due: the worker sleeps on it
+        self._due = threading.Event()
         self._crashed = False
         self._last_snap: PolicySnapshot | None = None
         self._last_solved_t = -np.inf
@@ -227,6 +229,8 @@ class AsyncMpcRunner:
     # -- consumer side (control tick) ----------------------------------
     def set_observation(self, t: float, x_obs: np.ndarray) -> None:
         self._obs_slot.write(np.concatenate([[t], np.asarray(x_obs, dtype=np.float64)]))
+        if t - self._last_solved_t >= self.period - 1e-9:
+            self._due.set()  # wake the worker: this observation is due for a replan
 
     def poll_policy(self) -> PolicySnapshot | None:
         """Latest published policy; parse cached by sequence number."""
@@ -272,14 +276,20 @@ class AsyncMpcRunner:
 
     def _worker_loop(self) -> None:
         while not self._stop.is_set():
+            # sleep (the GIL released) until an observation is due for a replan.  A
+            # worker that polled the slot every 0.2 ms took the GIL ~5,000 times a
+            # second, and a tick running at that moment had to hand it over and wait
+            # to get it back (on the slow host of an H100 80GB HBM3 machine at 700 W,
+            # ~0.4 ms of the tick's p50 and ~6 ms of its p99: PERF.md §6)
+            if not self._due.wait(timeout=0.05):
+                continue
+            self._due.clear()
             seq, obs = self._obs_slot.read()
             if seq == 0:
-                time.sleep(2e-4)
                 continue
             t_obs, x_obs = float(obs[0]), obs[1:]
             # replan cadence in observation (robot) time
             if t_obs - self._last_solved_t < self.period - 1e-9:
-                time.sleep(2e-4)
                 continue
             try:
                 self._solve_and_publish(t_obs, x_obs)
@@ -305,6 +315,7 @@ class AsyncMpcRunner:
 
     def stop(self) -> None:
         self._stop.set()
+        self._due.set()
         if self._thread is not None:
             self._thread.join(timeout=30.0)
             self._thread = None
@@ -321,6 +332,27 @@ class AsyncMpcRunner:
         dead, like the reference's MPC-thread-exception shutdown
         (BipedalController.cpp:344-348)."""
         return self._crashed
+
+    def wait_until_fresh(self, t: float, max_staleness: float, timeout: float = 120.0) -> bool:
+        """Block (sim-driver use only) until the newest policy was solved
+        within ``max_staleness`` of observation time ``t``.
+
+        A real-time deployment never calls this — wall clock paces the robot
+        and the 50 Hz worker keeps up by construction.  A *simulated* plant
+        can outrun the solver on a slow host, which no real system does; the
+        reference's MuJoCo node solves this by slowing physics to wall clock
+        (bipedal_mujoco/src/main.cc:267-389 CPU-sim sync).  This is the
+        equivalent throttle for the as-fast-as-possible sim drivers.  False
+        when the worker stops first or the timeout passes."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            snap = self.poll_policy()
+            if snap is not None and t - snap.t_obs <= max_staleness:
+                return True
+            if not self.running:
+                return False
+            time.sleep(5e-4)
+        return False
 
     def close(self) -> None:
         self.stop()

@@ -28,7 +28,8 @@ estimator have two backends each:
   synchronisation outside a replan.
 - Asynchronous mode (``mpc_async=True``): the MPC replans on a worker
   thread (runtime/async_mpc.py) and the tick evaluates its newest snapshot
-  in numpy: with the host backends the tick touches no CUDA tensor.
+  in numpy: with the host backends the tick touches no CUDA tensor.  The
+  tick publishes its observation last, after its command.
 
 tau_ff is the WBC's torque as its QP returns it, as in the JAX package.
 The QP holds |tau| <= limit (torqueLimitsTask) as a hard constraint, but the
@@ -444,7 +445,6 @@ class BipedalController:
             return JointCommand(zero, zero, zero, self.joint_kd.copy(), zero)
 
         if self.async_mpc is not None:
-            self.async_mpc.set_observation(t, x_obs)
             snap = self.async_mpc.poll_policy()
             self.staleness.append(t - snap.t_obs)
             pol = evaluate_policy_np(
@@ -490,6 +490,10 @@ class BipedalController:
             kd=self.joint_kd.copy(),
             tau_ff=tau,
         )
+        if self.async_mpc is not None:
+            # published last: a replan it makes due wakes the worker, which then takes the
+            # GIL as the tick ends instead of interrupting it
+            self.async_mpc.set_observation(t, x_obs)
         t_end = time.perf_counter()
         self.tick_timer.samples.append(t_end - tick_t0)
         self.tick_ex_timer.samples.append((t_pre_wbc - tick_t0) + (t_end - t_post_wbc))

@@ -19,9 +19,12 @@ import numpy as np
 from ..utils.native_build import load_native
 
 
-def load_library() -> ctypes.CDLL:
-    """The runtime CDLL, built on first use; raises if it cannot be."""
-    lib = load_native("rt_runtime", ("-O2", "-pthread"))
+def load_library(hold_gil: bool = False) -> ctypes.CDLL:
+    """The runtime library, built on first use; raises if it cannot be.
+    ``hold_gil``: its calls keep the GIL (the policy slot's copies, which
+    the control tick makes); the loop's start and stop must release it,
+    because stop joins a thread whose callback takes the GIL."""
+    lib = load_native("rt_runtime", ("-O2", "-pthread"), hold_gil=hold_gil)
     lib.policy_slot_create.restype = ctypes.c_void_p
     lib.policy_slot_create.argtypes = [ctypes.c_size_t]
     lib.policy_slot_destroy.argtypes = [ctypes.c_void_p]
@@ -53,7 +56,7 @@ class PolicySlot:
     """Single-writer multi-reader snapshot buffer for flat float64 blobs."""
 
     def __init__(self, n_doubles: int):
-        self._lib = load_library()
+        self._lib = load_library(hold_gil=True)
         self._n = n_doubles
         self._h = self._lib.policy_slot_create(n_doubles)
 

@@ -8,8 +8,11 @@ background (runtime/async_mpc.py).  Simulation tests drive the tick from
 their own sim-time loops instead (sim time != wall time); this runner is
 for real plants and for wall-clock soak tests of the tick pipeline.
 
-The runner times each cycle's read, update and write (``cycle_seconds``,
-the last 100,000 cycles).
+The runner times each cycle's start, read, update and write
+(``cycle_seconds``, the last 100,000 cycles).  The start is how late the
+callback began after the later of its deadline and the previous cycle's
+end: the loop thread's wake-up and its wait for the GIL (held by another
+Python thread, such as the MPC worker's host code).
 """
 from __future__ import annotations
 
@@ -46,19 +49,25 @@ class RtControllerRunner:
         self._loop: RtLoop | None = None
         self._t0 = None
         self.ticks = 0
-        # (read, update, write) seconds of each of the last 100,000 cycles
-        self.cycle_seconds: deque[tuple[float, float, float]] = deque(maxlen=100_000)
+        # (start, read, update, write) seconds of each of the last 100,000 cycles
+        self.cycle_seconds: deque[tuple[float, float, float, float]] = deque(maxlen=100_000)
+        self._first = self._end = None  # the first cycle's start, the last cycle's end (monotonic)
 
     def _tick(self) -> bool:
-        c0 = time.perf_counter()
-        t = time.monotonic() - self._t0
+        c0 = time.monotonic()
+        if self._first is None:
+            self._first = self._end = c0
+        # the loop's absolute deadlines run from its first cycle
+        deadline = self._first + self.ticks / self.frequency
+        late = max(0.0, c0 - max(deadline, self._end))
+        t = c0 - self._t0
         rbd = self._read()
-        c1 = time.perf_counter()
+        c1 = time.monotonic()
         cmd = self.ctrl.update(t, rbd)
-        c2 = time.perf_counter()
+        c2 = time.monotonic()
         self._write(cmd)
-        c3 = time.perf_counter()
-        self.cycle_seconds.append((c1 - c0, c2 - c1, c3 - c2))
+        c3 = self._end = time.monotonic()
+        self.cycle_seconds.append((late, c1 - c0, c2 - c1, c3 - c2))
         self.ticks += 1
         return not self.ctrl.safe  # True stops the loop
 

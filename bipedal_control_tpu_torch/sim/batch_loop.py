@@ -9,6 +9,11 @@ compiles the episode into one XLA program).  On the card the replan and the
 control tick are each replayed from a CUDA graph (utils/cuda_graph.py): the
 replan runs the batched solver's kernels (K1, K2+K3, K4 with the production
 settings), the tick one K5 launch for the B whole-body QPs' KKT systems.
+With riccati "parallel" or "parallel_sqrt" the replans (the cold start
+too) run op by op, by a rule on the backend: a capture refuses their linear
+algebra (the dense scan's batched ``inv_ex``, the square-root scan's
+``eigh``, which checks its result on the host; measured on an H100), while
+the ticks still replay their graph.
 Time and the node grid enter the graphs as device tensors, and nothing in
 them reads a value back to the host, so an episode synchronises the card
 once, when its result is read.
@@ -102,7 +107,8 @@ class BatchedClosedLoop:
     episode's steps; ``__call__`` runs them all.  On the card each step is
     a :class:`GraphedCall`, one per step kind and batch size: its first
     call runs op by op and captures, later calls (this episode's and the
-    next ones') replay."""
+    next ones') replay; with a parallel Riccati scan ``begin`` and
+    ``replan`` always run op by op."""
 
     def __init__(self, iface: RobotInterface, cfg: BatchLoopConfig, wbc_cfg, tables, grids, z_fall: float,
                  retarget, capture):
@@ -125,6 +131,9 @@ class BatchedClosedLoop:
         self._capture_dq, self._cap_decay, self._cap_wshift = capture
         self.solver = make_batched_solver(self.model, self.info, iface.settings, iface.Q, iface.R, device=self.device)
         self._graphs = {} if self.device.type == "cuda" else None
+        # step kinds that run op by op on the card: the solves of the parallel scans,
+        # which a CUDA-graph capture refuses (module docstring)
+        self._op_by_op = {"begin", "replan"} if iface.settings.riccati in ("parallel", "parallel_sqrt") else set()
 
     # ------------------------------------------------------------- steps
     def begin(self, x0_batch) -> LoopState:
@@ -158,7 +167,7 @@ class BatchedClosedLoop:
         return self.result(state)
 
     def _call(self, name: str, fn, inputs):
-        if self._graphs is None:
+        if self._graphs is None or name in self._op_by_op:
             return fn(*inputs)
         key = (name, inputs[-1].shape[0])  # one graph per step kind and batch size
         graph = self._graphs.get(key)

@@ -9,7 +9,13 @@ source named by a hash of the source and the flags:
 
     g++ <flags> -shared -fPIC -std=c++17 -o lib<stem>.so <dir>/<stem>.cc
 
-A library builds at its first use, never at import.  The compiler writes a
+A library builds at its first use, never at import.  ``hold_gil=True``
+loads it as a ``ctypes.PyDLL``, whose calls keep the GIL: the control
+tick's short calls take that form, because a call that releases the GIL
+must take it back afterwards, and while another Python thread (the MPC
+worker) runs, each taking-back waits up to the interpreter's switch
+interval.  The tick's one long call, the host WBC's QP, releases it, so
+that the worker's host code runs meanwhile.  The compiler writes a
 temporary file that is renamed into place, so two processes may build the
 same library at once.  A failed build or load raises: there is no fallback
 here, and the numpy twins run only where the caller asks for them.
@@ -32,13 +38,14 @@ _loaded: dict[tuple, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def load_native(stem: str, flags: tuple[str, ...] = ("-O3",)) -> ctypes.CDLL:
+def load_native(stem: str, flags: tuple[str, ...] = ("-O3",), hold_gil: bool = False) -> ctypes.CDLL:
     """native/<stem>.cc (else the port's native/<stem>.cc) built with
-    ``flags`` and loaded (cached per process)."""
-    request = (stem, flags, str(BUILD_DIR), CXX)
+    ``flags`` and loaded (cached per process): as a ``ctypes.PyDLL``, whose
+    calls keep the GIL, when ``hold_gil``, else as a ``ctypes.CDLL``."""
+    request = (stem, flags, str(BUILD_DIR), CXX, hold_gil)
     with _lock:
         if request not in _loaded:
-            _loaded[request] = ctypes.CDLL(str(_build(stem, flags)))
+            _loaded[request] = (ctypes.PyDLL if hold_gil else ctypes.CDLL)(str(_build(stem, flags)))
         return _loaded[request]
 
 

@@ -12,8 +12,8 @@ numpy twin), so a control tick launches nothing on the card.
 Backends: ``native=True`` (the default) runs the model quantities in the
 C++ of native/ (model/native_model.py) and the whole QP, its task rows, its
 factorization and its ADMM, in the port's native/host_wbc.cc
-(wbc/native_qp.py::NativeWbc), one call each per tick with the GIL
-released, and raises if they cannot be built; ``native=False`` runs their
+(wbc/native_qp.py::NativeWbc), one call each per tick (the QP's with the
+GIL released, the model's with it held), and raises if they cannot be built; ``native=False`` runs their
 numpy twins (compute_wbc_kinematics_np, HostWbc._assemble, solve_qp_np).
 tests/test_torch_host_wbc.py holds both against the JAX package's HostWbc.
 

@@ -30,8 +30,10 @@ class NativeWbc:
     """The whole host WBC of one tick in one C++ call (the port's
     native/host_wbc.cc): HostWbc._assemble's task rows, the Schur
     complement's inverse, solve_qp_np's ADMM and its residuals, on the
-    kinematics buffers of a NativeHostModel, with the GIL released.  One
-    instance per HostWbc (not thread-safe)."""
+    kinematics buffers of a NativeHostModel, with the GIL released: the
+    tick's longest call, during which the MPC worker's host code can run
+    (the tick's shorter native calls keep the GIL, utils/native_build.py).
+    One instance per HostWbc (not thread-safe)."""
 
     # the order of the kinematics arrays in host_wbc.cc's Kin
     KIN_FIELDS = ("q_m", "v_m", "M", "nle", "Jc", "dJc", "p_contact_m", "v_contact_m", "base_J", "base_dJ",

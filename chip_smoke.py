@@ -3,6 +3,7 @@
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --profile   # phases 1-2, then a profile of the B=256 solve
     python3 chip_smoke.py --variants  # phases 1-2, then phase 15 (the solver variants)
+    python3 chip_smoke.py --cli       # phases 1-2, then phase 16 (the command line)
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: CUDA must be available; prints the card's name and power limit;
@@ -74,7 +75,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      then under RtControllerRunner (the native RtLoop at 400 Hz) for 1.0 s:
      the tick's time, the policy's staleness, the worker's solve time and
      the loop's cycles (at least 300 ticks written), overruns and each
-     cycle's read, update and write times; (c) 20
+     cycle's start (how late its callback began after the later of its
+     deadline and the previous cycle's end: the loop thread's wake-up and
+     its wait for the GIL), read, update and write times; then the same
+     loop with the worker stopped (no bar: the difference is the worker's
+     share of the cycle); (c) 20
      synchronous ticks in float64, production against the all-plain
      configuration on the same replayed measurements
      (pos_des, vel_des, tau_ff 1e-5 relative to max(1, max|ref|), planned
@@ -109,7 +114,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      (the JAX test's bars: base-to-foot and height 5e-3 m, velocity
      1e-2 m/s); then 4 ticks under torch.profiler, in each of which
      the device must run K5 once (the WBC replays its CUDA graph, which no
-     wrapper counts); the float32 torque of every tick whose float64 QP is
+     wrapper counts; a window whose trace lacks a run, as the tracer drops
+     records now and then, is traced again on the next 4 ticks, up to 3
+     windows, and one of them must record every run); the float32 torque of every tick whose float64 QP is
      solved against the float64 WBC on the same inputs (5e-2 relative to
      max(1, max|tau|); float32 keeps a few digits through the KKT's 2e-6
      torque pivots), and the same inputs in float32 batches through K5 and
@@ -130,6 +137,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      defect_last within 1e-5 relative to max(1, max|ref|), fell equal;
      then the same episode with each step in a profiler window of its
      own: K1, K2+K3 and K4 once in every solve, K5 once in every tick;
+     then the episode with riccati "parallel_sqrt" (penalty 1e4; its solves
+     run op by op, as a capture refuses the scan's eigh) on the card
+     against all plain on the CPU at the same 1e-5, fell equal;
      (b) float32, B = 64 randomized at scale 1.0 (seed 7), trot from 0.2 s,
      cmd_vel 0.3 m/s, 1.0 s, run twice (the first runs each step op by op
      and captures): every lane finite at the end; fell, upright and
@@ -164,23 +174,38 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      sequential, xla: the kernels refuse SRBD): MpcRunner float64 card vs
      CPU over a cold and a warm replan at phase 7's bars, then the float32
      replan's ms (op by op);
+ 16. the command line (bipedal_control_tpu_torch/cli.py, the port's
+     production backends) with the robot registry's G1 on the URDF of
+     phases 10-15: ``plan --robot g1 --gait trot --duration 0.2 --out ...``
+     on the card in float64 under torch.profiler (K1, K2+K3 and K4 run once
+     per replan, 10 replans) against the same on the CPU through the plain
+     versions (the saved states and inputs within 1e-5 relative to
+     max(1, max|ref|), the times equal); then in float32, untraced: its wall
+     time and the replans' p50/p99 (the runner's host timer); then ``gaits``
+     and Visualizer(record_tf=True).update + export_json over the card's
+     float64 trajectory (finite markers, the first frame's soles on the
+     ground).  The phase imports neither mujoco nor matplotlib (the card's
+     machine has neither): ``sim`` and ``save_figure`` are held on the CPU
+     (tests/test_torch_sim.py, tests/test_torch_cli.py), the controller that
+     ``sim`` drives by phases 12-13;
 then a JSON line of G1's solve and loop results, a JSON line of the
 controller's, a JSON line of phase 13's, a JSON line of phase 14's, a JSON
-line of phase 15's, a JSON line of per-kernel results (with each model
+line of phase 15's, a JSON line of phase 16's, a JSON line of per-kernel
+results (with each model
 kernel's G1 figures under "g1", K5's at the device WBC's shapes, with its
 launches per controller tick, every kernel's launches per cascade replan
-and tick, and K1's, K2+K3's and K4's per hard-cone and ipm solve) and,
-last, the device JSON line.
+and tick, and K1's, K2+K3's and K4's per hard-cone and ipm solve and per
+replan of the command line's plan) and, last, the device JSON line.
 With --profile, phases 1-2 are followed by torch.profiler over warm B=256
 float32 solves of the production and "structured" configurations (device
 busy share, device time by kernel, the host's synchronising runtime calls).
 With --variants, phases 1-2 are followed by phase 15 alone and its JSON
-line.
+line; with --cli, by phase 16 alone and its JSON line.
 
 The robot of phases 3-9 is H1-shaped (10 leg joints, 4 sole contacts, upper
 body welded into the base, ~47 kg): nx = nu = 22 and ne = 16 as for H1.
 When $BIPEDAL_ASSETS holds the H1 URDF, H1 itself is loaded instead.  The
-robot of phases 10-14 is the synthetic G1-shaped biped of
+robot of phases 10-16 is the synthetic G1-shaped biped of
 tests/data/g1_shaped_biped.urdf (nx = nu = 24), or G1's own URDF when
 $BIPEDAL_ASSETS holds it.  Weights,
 references and initial states are made from fixed numpy seeds.  Each
@@ -190,6 +215,7 @@ float32 without tensor cores; NVIDIA's data sheet).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1029,14 +1055,20 @@ def phase_profile(model, info, device):
 
 
 # ------------------------------------------------------------------ G1 front end
+def g1_urdf() -> tuple[str, str]:
+    """(URDF, description) of G1: its own URDF when $BIPEDAL_ASSETS holds
+    it, else the synthetic G1-shaped biped of tests/data."""
+    urdf = get_assets("g1").urdf
+    if os.environ.get("BIPEDAL_ASSETS") and os.path.exists(urdf):
+        return urdf, f"unitree G1 ({urdf})"
+    return G1_SHAPED_URDF, "G1-shaped synthetic biped (G1 URDF not in $BIPEDAL_ASSETS)"
+
+
 def load_g1(device, dtype=torch.float64):
     """make_interface on G1's configuration (configs/g1/* with
-    overrides.info): G1's own URDF when $BIPEDAL_ASSETS holds it, else the
-    synthetic G1-shaped biped of tests/data."""
+    overrides.info) and g1_urdf()'s URDF."""
     g1 = get_assets("g1")
-    urdf, robot = g1.urdf, f"unitree G1 ({g1.urdf})"
-    if not (os.environ.get("BIPEDAL_ASSETS") and os.path.exists(urdf)):
-        urdf, robot = G1_SHAPED_URDF, "G1-shaped synthetic biped (G1 URDF not in $BIPEDAL_ASSETS)"
+    urdf, robot = g1_urdf()
     iface = make_interface(urdf, g1.task_info, g1.reference_info, g1.gait_info, g1.overrides_info,
                            device=device, dtype=dtype)
     iface.settings = g1_settings(iface.settings, "production")
@@ -1439,6 +1471,43 @@ def sync_run(iface32, torque: TorqueReadings, check_replay: bool):
     return ctrl, plant, replans, np.asarray(replan_tick), z_dev
 
 
+def rt_loop(iface32, worker: bool):
+    """Phase 12(b)'s RtControllerRunner: a trotting async controller on the
+    replay, 1.0 s at 400 Hz (priority 0), with its MPC worker running or
+    stopped after its first replans.  (controller, runner, the loop's stats
+    at the stop, plant, [(command, the tick's QP primal residual)] written
+    on the loop's thread after each tick)."""
+    ctrl = trotting_controller(iface32, mpc_async=True)
+    plant = Replay(iface32)
+    ctrl.starting(0.0, plant.rbd)
+    if not worker:
+        ctrl.async_mpc.stop()
+    cmds = []
+    runner = RtControllerRunner(ctrl, read=lambda: plant.measure(ctrl),
+                                write=lambda cmd: cmds.append((cmd, ctrl.wbc_primal_residual)), frequency_hz=400.0,
+                                priority=0)
+    try:
+        runner.start()
+        time.sleep(1.0)
+        loop_stats = runner.stats()
+    finally:
+        runner.stop()
+        ctrl.stop()
+    require(not runner.failed, f"RtControllerRunner: the tick raised {runner.exception!r}")
+    require(ctrl.safe and (not worker or not ctrl.async_mpc.failed), "RtControllerRunner: unsafe or the worker failed")
+    return ctrl, runner, loop_stats, plant, cmds
+
+
+def rt_cycle_parts(runner) -> dict:
+    """Percentiles of each part of the runner's cycles and of the cycle
+    (read + update + write; the start, the wait before the callback, is
+    its own part)."""
+    cycle = np.asarray(runner.cycle_seconds)  # (cycles, 4): start, read, update, write
+    parts = {name: percentiles(cycle[:, i]) for i, name in enumerate(("start", "read", "update", "write"))}
+    parts["cycle"] = percentiles(cycle[:, 1:].sum(axis=1))
+    return parts
+
+
 def phase_controller(device, iface) -> dict:
     """Phase 12: BipedalController on G1 (see the module docstring)."""
     iface32 = iface.to(dtype=torch.float32)
@@ -1529,42 +1598,30 @@ def phase_controller(device, iface) -> dict:
           f"{a['worker_solve']['p99_ms']:.3f} ms; {a['replans_published']} replans published; paused worker: "
           f"{activities} device activities in 40 ticks; max |replayed z - 0.665| {z_dev:.4f} m; replay plant p50 "
           f"{a['replay_plant']['p50_ms']:.3f} ms per tick (outside the tick's time); {torque}")
-    ctrl = trotting_controller(iface32, mpc_async=True)
-    plant = Replay(iface32)
+    ctrl, runner, loop_stats, plant, cmds = rt_loop(iface32, worker=True)
+    parts = rt_cycle_parts(runner)
     torque = TorqueReadings(limits)
-    ctrl.starting(0.0, plant.rbd)
-    cmds = []  # (command, the tick's QP primal residual), written on the loop's thread after each tick
-
-    runner = RtControllerRunner(ctrl, read=lambda: plant.measure(ctrl),
-                                write=lambda cmd: cmds.append((cmd, ctrl.wbc_primal_residual)), frequency_hz=400.0,
-                                priority=0)
-    try:
-        runner.start()
-        time.sleep(1.0)
-        loop_stats = runner.stats()
-    finally:
-        runner.stop()
-        ctrl.stop()
-    require(not runner.failed, f"RtControllerRunner: the tick raised {runner.exception!r}")
-    require(ctrl.safe and not ctrl.async_mpc.failed, "RtControllerRunner: unsafe or the worker failed")
-    cycle = np.asarray(runner.cycle_seconds)  # (cycles, 3): read, update, write
-    parts = {name: percentiles(cycle[:, i]) for i, name in enumerate(("read", "update", "write"))}
-    parts["cycle"] = percentiles(cycle.sum(axis=1))
     rep = ctrl.report()
     out["rt_loop"] = {"loop": loop_stats, "ticks_written": len(cmds), "tick": rep["tick"],
                       "policy_staleness_s": rep["policy_staleness_s"], "worker_solve": rep["mpc"],
                       "replans_published": rep["mpc_solves"], "replay_plant": percentiles(plant.seconds),
                       "cycle_parts": parts}
     r = out["rt_loop"]
+    # the same loop with the worker stopped after its first replans: what the worker's host code costs the cycle
+    _, alone, alone_stats, _, alone_cmds = rt_loop(iface32, worker=False)
+    r["worker_stopped"] = {"loop": alone_stats, "ticks_written": len(alone_cmds), "cycle_parts": rt_cycle_parts(alone)}
+    fmt = lambda ps: "; ".join(f"{k} {v['p50_ms']:.3f} / {v['p99_ms']:.3f} / {v['max_ms']:.3f}" for k, v in ps.items())
     print(f"[12 controller] RtControllerRunner 400 Hz, priority 0, 1.0 s: {loop_stats['cycles']} cycles (a cycle is "
-          f"the replay plant's read, the tick and the write; at least 300), "
-          f"{loop_stats['overruns']} overruns, max cycle {loop_stats['max_cycle_ns'] / 1e6:.3f} ms; per cycle (ms p50 "
-          f"/ p99 / max) " + "; ".join(f"{k} {v['p50_ms']:.3f} / {v['p99_ms']:.3f} / {v['max_ms']:.3f}"
-                                      for k, v in parts.items())
-          + f"; tick (update's timer) p50 {r['tick']['p50_ms']:.3f} / p99 {r['tick']['p99_ms']:.3f} ms; replay plant "
+          f"the replay plant's read, the tick and the write, after its start: the loop thread's wake-up and its "
+          f"wait for the GIL; at least 300), {loop_stats['overruns']} overruns, max cycle "
+          f"{loop_stats['max_cycle_ns'] / 1e6:.3f} ms; per cycle (ms p50 / p99 / max) {fmt(parts)}; tick (update's "
+          f"timer) p50 {r['tick']['p50_ms']:.3f} / p99 {r['tick']['p99_ms']:.3f} ms; replay plant "
           f"p50 {r['replay_plant']['p50_ms']:.3f} / p99 {r['replay_plant']['p99_ms']:.3f} ms; "
           f"staleness p50 {r['policy_staleness_s']['p50'] * 1e3:.2f} / p99 {r['policy_staleness_s']['p99'] * 1e3:.2f} "
           f"ms; worker solve p50 {r['worker_solve']['p50_ms']:.3f} ms; {r['replans_published']} replans published")
+    print(f"[12 controller] RtControllerRunner with the MPC worker stopped (no bar; the difference is the worker's "
+          f"share): {alone_stats['cycles']} cycles, {alone_stats['overruns']} overruns; per cycle "
+          f"(ms p50 / p99 / max) {fmt(r['worker_stopped']['cycle_parts'])}")
     require(len(cmds) >= 300, f"RtControllerRunner: {len(cmds)} ticks in 1.0 s at 400 Hz (at least 300)")
     require(ctrl.async_mpc.solve_count >= 40,
             f"RtControllerRunner: {ctrl.async_mpc.solve_count} replans published (at least 40)")
@@ -1942,23 +1999,35 @@ def phase_device_controller(device, iface) -> dict:
     wbc_s, ex_s, kalman_s = list(ctrl.wbc_timer.samples), list(ctrl.tick_ex_timer.samples), run["kalman_s"][1:]
     # four more ticks, the first of them a replan, under the profiler: the
     # device's runs of each kernel per tick (every tick replays the WBC's
-    # graph, which no wrapper counts).  A tick is ~9,000 device activities;
-    # a 10-tick window once counted 9 of its 10 K5 runs (records the tracer
-    # dropped, as read here), so the window is kept short.
-    window_ticks, replans_before = 4, ctrl.mpc.timer.count
-    window = lambda: [ctrl.update_from_sensors(1.0 + i * TICK_S, *imu.read(plant.measure(ctrl)))
-                      for i in range(window_ticks)]
-    _, _, ran = profile_counts(window, cpu=False)
-    require(ran["gauss_jordan"] == window_ticks, f"device-WBC controller: the device ran K5 {ran['gauss_jordan']} "
-            f"times in {window_ticks} ticks (once per tick expected)")
-    require_runs(ran, ctrl.mpc.timer.count - replans_before, f"device-WBC controller, {window_ticks} ticks")
+    # graph, which no wrapper counts).  A tick is ~9,000 device activities,
+    # and the tracer drops a record now and then: a 10-tick window once
+    # counted 9 of its 10 K5 runs, a 4-tick window 3 of 4 (PERF.md §6).  So a
+    # window that records fewer runs than the ticks ran is traced again, on
+    # the next four ticks, up to three windows in all; one that records more
+    # fails at once, and one of the three must record every run.
+    window_ticks, windows = 4, []
+    for w in range(3):
+        t_window, replans_before = 1.0 + w * window_ticks * TICK_S, ctrl.mpc.timer.count
+        window = lambda: [ctrl.update_from_sensors(t_window + i * TICK_S, *imu.read(plant.measure(ctrl)))
+                          for i in range(window_ticks)]
+        _, _, ran = profile_counts(window, cpu=False)
+        want = dict.fromkeys(("linearize", "riccati", "merit"), ctrl.mpc.timer.count - replans_before)
+        want["gauss_jordan"] = window_ticks
+        windows.append({"ran": ran, "expected": want})
+        require(all(ran[k] <= n for k, n in want.items()), f"device-WBC controller: the device ran {ran} in "
+                f"{window_ticks} ticks, more than once per tick and replan ({want})")
+        if all(ran[k] == n for k, n in want.items()):
+            break
+    require(all(ran[k] == n for k, n in want.items()), f"device-WBC controller: no window of {window_ticks} ticks "
+            f"recorded K5 once per tick and K1, K2+K3, K4 once per replan: {windows}")
+    t_next = t_window + window_ticks * TICK_S
     tau = f32_torque_errors(iface, ctrl.wbc_cfg, wbc_calls)
     # the device activities (kernels, copies, fills) of one WBC and one
     # filter step, each a graph replay, called past the run's timing
     # wrappers; traced on the device only, as the other long windows are
     wbc_activities = profile_counts(lambda: DeviceWbc.update(ctrl.device_wbc, *wbc_calls[-1][0]), cpu=False)[0]
     sensors = imu.read(plant.measure(ctrl))
-    flags = ctrl._planned_flags(1.0 + window_ticks * TICK_S)
+    flags = ctrl._planned_flags(t_next)
     kalman_activities = profile_counts(lambda: KalmanStateEstimator.update(ctrl.estimator, *sensors, flags),
                                        cpu=False)[0]
     settle = slice(40, None)  # after the first 0.1 s (the filter's settling and the trot's start)
@@ -1968,7 +2037,7 @@ def phase_device_controller(device, iface) -> dict:
            "wbc": percentiles(wbc_s), "tick_ex_wbc": percentiles(ex_s),
            "kalman_step": percentiles(kalman_s), "replan_cuda_events": percentiles(np.asarray(replan_ms) / 1e3),
            "k5_runs_per_tick": ran["gauss_jordan"] / window_ticks, "kernel_runs_window": ran,
-           "window_ticks": window_ticks, "wrapper_launches": counts,
+           "window_ticks": window_ticks, "traced_windows": windows, "wrapper_launches": counts,
            "estimate_max_abs_err": {"base_position_m": float(err_p.max()), "base_velocity_m_s": float(err_v.max()),
                                     "base_position_m_after_0.1s": float(err_p[settle].max()),
                                     "base_velocity_beyond_odometry_gap_m_s": float((err_v - gap).max()),
@@ -1983,7 +2052,9 @@ def phase_device_controller(device, iface) -> dict:
           f" ms; Kalman step (host, with its two copies) p50 {out['kalman_step']['p50_ms']:.3f} / p99 "
           f"{out['kalman_step']['p99_ms']:.3f} ms; device activities per WBC {wbc_activities}, per Kalman step "
           f"{kalman_activities}; replan p50 {out['replan_cuda_events']['p50_ms']:.3f} ms; the "
-          f"device ran {ran} in {window_ticks} ticks, one replan among them (profiler), the wrappers launched "
+          f"device ran {ran} in {window_ticks} ticks, {want['linearize']} replan(s) among them (profiler; "
+          f"{len(windows)} window(s) traced, the tracer recorded {[w['ran']['gauss_jordan'] for w in windows]} K5 "
+          f"runs), the wrappers launched "
           f"{counts}; estimate vs replay max |base "
           f"position error| {err_p.max():.5f} m ({err_p[settle].max():.5f} after 0.1 s; bar 5e-3), |base velocity "
           f"error| {err_v.max():.4f} m/s (p99 {np.percentile(err_v, 99):.4f}), beyond the replay's odometry gap "
@@ -2168,6 +2239,31 @@ def phase_cascade(device, g1, batch: int = 64, duration: float = 1.0) -> dict:
     out["parity_f64"] = {"errors": errs, "fell": fell.tolist(),
                          "wrapper_launches": counts, "cpu_plain_s": cpu_s, "profile": prof,
                          "profiled_vs_first_episode": replay_err}
+    # (a') the same episode with the square-root parallel Riccati scan (penalty 1e4): its
+    # solves run op by op (a capture refuses eigh), the ticks replay their graph
+    sqrt = lambda iface: dataclasses.replace(iface, settings=dataclasses.replace(
+        iface.settings, riccati="parallel_sqrt", riccati_penalty=1e4))
+    reset_launches()
+    t0 = time.perf_counter()
+    loop = make_batched_closed_loop(sqrt(card), BatchLoopConfig(duration=0.06), **CASCADE_EPISODE)
+    got_res = loop(X)
+    got = cascade_fields(got_res)
+    card_s = time.perf_counter() - t0
+    counts = read_launches()
+    want_res = make_batched_closed_loop(sqrt(cascade_iface(g1, "plain", "cpu", torch.float64)),
+                                        BatchLoopConfig(duration=0.06), device="cpu", **CASCADE_EPISODE)(X)
+    want = cascade_fields(want_res)
+    errs = {name: np_rel_err(got[name], want[name]) for name in CASCADE_FIELDS}
+    fell = got_res.fell.cpu().numpy()
+    print(f"[14 cascade] float64 3 lanes, 0.06 s, riccati parallel_sqrt (penalty 1e4; solves op by op, ticks "
+          f"graphed; {card_s:.1f} s), the card vs all plain on the CPU: "
+          + "; ".join(f"{n} {errs[n]:.2e}" for n in CASCADE_FIELDS) + f" (bar 1e-5); fell {fell.tolist()} vs "
+          f"{want_res.fell.numpy().tolist()}; the wrappers launched {counts}")
+    require(np.array_equal(fell, want_res.fell.numpy()) and all(errs[n] <= 1e-5 for n in CASCADE_FIELDS),
+            f"cascade f64 parallel_sqrt parity failed: {errs}, fell {fell.tolist()}")
+    require(counts["linearize"] >= 1 and counts["merit"] >= 1 and counts["gauss_jordan"] >= 1,
+            f"cascade parallel_sqrt: K1, K4 or K5 not launched: {counts}")
+    out["parallel_sqrt_f64"] = {"errors": errs, "fell": fell.tolist(), "wrapper_launches": counts, "card_s": card_s}
 
     # (b) the survival configuration, timed
     iface32 = cascade_iface(g1, "production", device, torch.float32)
@@ -2302,6 +2398,35 @@ def cone_margin(iface, sol, cone: str) -> float:
     return float(g[refs.contact_flags > 0.5].min())
 
 
+@contextlib.contextmanager
+def k1_outputs_checked(written: list):
+    """Within the block, K1's wrapper allocates its outputs filled with NaN
+    and, after each launch, synchronises and appends to ``written`` whether
+    the kernel overwrote every entry: a launch that did not run shows."""
+    class NanEmpty:  # torch, whose empty() fills with NaN
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        def empty(self, shape, dtype=None, device=None):
+            return torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+    launch = linearize_kernel.linearize_cuda
+
+    def checked(*args):
+        outs = launch(*args)
+        written.append(all(bool(torch.isfinite(o).all()) for o in outs))
+        return outs
+
+    # the wrapper counts its launches on the module's linearize_cuda, which is this one here
+    checked.launches = launch.launches
+    try:
+        with mock.patch.object(linearize_kernel, "torch", NanEmpty()), \
+                mock.patch.object(linearize_kernel, "linearize_cuda", checked):
+            yield
+    finally:
+        launch.launches = checked.launches
+
+
 def variants_cones(device, g1, out: dict) -> None:
     """15(a): the hard and ipm SQP on the card (production backends, K1,
     K2+K3, K4 every iteration), float64 against the plain versions on the
@@ -2314,14 +2439,12 @@ def variants_cones(device, g1, out: dict) -> None:
         same_step = bool(torch.equal(got.step_size.cpu(), want.step_size))
         margin = cone_margin(cpu, want, cone)
         solver, inputs = lean_problem(card, "production", cone)
-        reset_launches()
         solver(*inputs)
-        launched = read_launches()
         # the solve captured in a CUDA graph (as MpcRunner graphs these settings) and one
-        # replay traced on the device: after phases 1-14 a trace of the solve run op by op
-        # has missed one K1 record (3 of 4, in 8 of 10 windows over four calls, with or
-        # without the host's calls traced; the wrappers launched 4 each time), while the
-        # traces of graph replays (phases 11-14) have missed none
+        # replay traced on the device; then the solve run op by op, traced too, with K1's
+        # outputs allocated NaN-filled and checked after each launch: after phases 1-14 such
+        # a trace has missed one K1 record (3 of 4, every window, the wrappers launching 4),
+        # while a fresh process's traces miss none, nor do the graph replays' (PERF.md §6)
         kernels = ("linearize", "riccati", "merit")
         nr = len(NodeRefs._fields)
         refs, *rest = inputs
@@ -2331,17 +2454,30 @@ def variants_cones(device, g1, out: dict) -> None:
         dev, _ = trace(lambda: graphed(flat), cpu=False)
         replay = graphed(flat)
         ran = kernel_runs(dev)
+        box, written = [], []
+        reset_launches()
+        with k1_outputs_checked(written):
+            op_dev, _ = trace(lambda: box.append(solver(*inputs)), cpu=False)
+        launched, op_ran = read_launches(), kernel_runs(op_dev)
         replay_err = max(rel_err(a, b) for a, b in zip(replay, first) if a is not None)
+        op_err = max(rel_err(a, b) for a, b in zip(box[0], replay) if a is not None)
         out[cone] = {"f64_errors": errs, "step_size": got.step_size.tolist(), "least_margin_N": margin,
-                     "kernel_runs_per_solve": ran, "wrapper_launches_per_solve": launched}
+                     "kernel_runs_per_solve": ran, "wrapper_launches_per_solve": launched,
+                     "kernel_runs_op_by_op_traced": op_ran, "k1_launches_wrote_outputs": written,
+                     "op_by_op_traced_vs_replay": op_err}
         print(f"[15 variants] (a) {cone} cone, G1 lean stress, float64 card production vs CPU plain: "
               + " ".join(f"{n} {v:.2e}" for n, v in errs.items()) + f" step_size equal {same_step} "
               f"({got.step_size.tolist()}); least stance margin {margin:.4f} N; kernel runs per solve "
               f"(profiler, a CUDA-graph replay of the solve) {ran}; the wrappers' launches per solve (op by op) "
-              f"{launched}; the replay vs the op-by-op solve {replay_err:.2e}")
+              f"{launched}; the replay vs the op-by-op solve {replay_err:.2e}; the op-by-op solve traced: the "
+              f"profiler's records {op_ran}, K1's launches wrote their NaN-filled outputs {written}, its result vs "
+              f"the replay's {op_err:.2e}")
         require(all(v <= VARIANT_BARS[n] for n, v in errs.items()) and same_step, f"{cone} f64 parity failed: {errs}")
         require(margin > -0.5, f"{cone}: least stance margin {margin:.3f} N (bar -0.5)")
-        require(replay_err <= 1e-9, f"{cone}: the graph replay of the solve differs from its op-by-op run")
+        require(replay_err <= 1e-9 and op_err <= 1e-9,
+                f"{cone}: the graph replay of the solve differs from its op-by-op runs: {replay_err}, {op_err}")
+        require(len(written) == LEAN_ITERS and all(written),
+                f"{cone}: a K1 launch left its outputs unwritten: {written}")
         require(all(ran[k] == launched[k] == LEAN_ITERS for k in kernels),
                 f"{cone}: K1, K2+K3 and K4 must run once per SQP iteration ({LEAN_ITERS}); the profiler saw "
                 f"{ran}, the wrappers launched {launched}")
@@ -2557,6 +2693,135 @@ def phase_variants(device, g1) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ the command line
+CLI_PLAN = ["plan", "--robot", "g1", "--gait", "trot", "--duration", "0.2"]
+
+
+def cli_run(argv, device, dtype) -> tuple[int, str]:
+    """(exit code, stdout) of bipedal_control_tpu_torch.cli.main(argv) on
+    device in dtype; the output is printed after the run."""
+    import io
+
+    from bipedal_control_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv, device=device, dtype=dtype)
+    return rc, buf.getvalue()
+
+
+def mpc_timing(stdout: str) -> dict:
+    """The replan timer's stats that plan prints ("mpc timing: {...}")."""
+    line = next(ln for ln in stdout.splitlines() if ln.startswith("mpc timing: "))
+    return json.loads(line[len("mpc timing: "):])
+
+
+def phase_cli(device, g1_urdf: str) -> dict:
+    """Phase 16: the command line on the card (see the module docstring)."""
+    from bipedal_control_tpu_torch import robots
+    from bipedal_control_tpu_torch.interface import make_interface_for
+    from bipedal_control_tpu_torch.runtime.visualizer import Visualizer
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli")
+    os.makedirs(out_dir, exist_ok=True)
+    saved = robots.REGISTRY["g1"]
+    robots.REGISTRY["g1"] = dataclasses.replace(saved, urdf=g1_urdf)
+    try:
+        runs, out = {}, {}
+        # (a) float64 on the card, each replan in a profiler window of its own (the
+        # device's kernel runs; the wrappers count each kind's first replan, the others
+        # replay its graph), then the same on the CPU through the plain versions
+        windows = []
+        advance_frozen = MpcRunner.advance_frozen
+
+        def traced_replan(runner, *args):
+            box = []
+            windows.append(profile_counts(lambda: box.append(advance_frozen(runner, *args)), cpu=False)[2])
+            return box[0]
+
+        for name, dev in (("card", device), ("cpu", "cpu")):
+            path = os.path.join(out_dir, f"plan_{name}.npz")
+            reset_launches()
+            t0 = time.perf_counter()
+            traced = mock.patch.object(MpcRunner, "advance_frozen", traced_replan)
+            with traced if name == "card" else contextlib.nullcontext():
+                rc, stdout = cli_run(CLI_PLAN + ["--out", path], dev, torch.float64)
+            wall = time.perf_counter() - t0
+            lines = [ln for ln in stdout.splitlines() if not ln.startswith("[config]")]
+            print("\n".join(f"[16 cli] {name} float64 | {ln}" for ln in lines))
+            require(rc == 0, f"cli plan on the {name}: exit {rc}")
+            runs[name] = (dict(np.load(path)), mpc_timing(stdout), wall)
+            if name == "card":
+                launched = read_launches()
+        (card, timing, wall), (cpu, _, cpu_wall) = runs["card"], runs["cpu"]
+        replans = timing["count"]
+        ran = {k: sum(w[k] for w in windows) for k in KERNEL_NAMES}
+        errs = {k: np_rel_err(card[k], cpu[k]) for k in ("states", "inputs")}
+        print(f"[16 cli] plan --robot g1 --gait trot --duration 0.2, float64: {card['states'].shape[0]} MRT steps, "
+              f"{replans} replans; the card vs the CPU's plain versions: states {errs['states']:.2e}, inputs "
+              f"{errs['inputs']:.2e} (bar 1e-5); times equal {np.array_equal(card['times'], cpu['times'])}; kernel "
+              f"runs on the card (profiler, each replan alone) {ran}; the wrappers launched {launched}; wall "
+              f"{wall:.1f} s (replans traced), CPU {cpu_wall:.1f} s")
+        require(np.array_equal(card["times"], cpu["times"]) and all(v <= 1e-5 for v in errs.values()),
+                f"cli plan: the card's trajectory left the CPU's: {errs}")
+        require(bool(np.isfinite(card["states"]).all()), "cli plan: non-finite state")
+        require(replans == len(windows) == 10, f"cli plan: {replans} replans in 0.2 s at 50 Hz (10 expected)")
+        require(all(all(w[k] == 1 for k in ("linearize", "riccati", "merit")) for w in windows),
+                f"cli plan: every replan must run K1, K2+K3 and K4 once on the device; the profiler saw {windows}")
+        require(all(launched[k] >= 1 for k in ("linearize", "riccati", "merit")),
+                f"cli plan: a kernel's wrapper launched it no time: {launched}")
+        out["f64"] = {"replans": replans, "errors": errs, "kernel_runs": ran, "wrapper_launches": launched,
+                      "base_z": [float(card["states"][:, 8].min()), float(card["states"][:, 8].max())]}
+        # (b) float32 on the card, untraced: the wall time and the replans' times
+        path = os.path.join(out_dir, "plan_card_f32.npz")
+        t0 = time.perf_counter()
+        rc, stdout = cli_run(CLI_PLAN + ["--out", path], device, torch.float32)
+        wall = time.perf_counter() - t0
+        timing = mpc_timing(stdout)
+        f32 = np.load(path)
+        f32_err = np_rel_err(f32["states"], card["states"])
+        require(rc == 0 and bool(np.isfinite(f32["states"]).all()), "cli plan float32: failed or non-finite")
+        out["f32"] = {"wall_s": wall, "replan_p50_ms": timing["p50_ms"], "replan_p99_ms": timing["p99_ms"],
+                      "replans": timing["count"], "states_vs_f64": f32_err}
+        print(f"[16 cli] plan float32 on the card: wall {wall:.3f} s (interface, runner, 0.2 s loop); replan p50 "
+              f"{timing['p50_ms']:.3f} / p99 {timing['p99_ms']:.3f} / max {timing['max_ms']:.3f} ms (host clock, ends "
+              f"in a synchronise; the first cold and warm replans run op by op and capture); states vs float64 "
+              f"{f32_err:.2e}")
+        # (c) gaits, and the visualizer's markers over the card's float64 trajectory
+        rc, stdout = cli_run(["gaits", "--robot", "g1"], device, None)
+        lines = [ln for ln in stdout.splitlines() if not ln.startswith("[config]")]
+        iface = make_interface_for("g1", device=device)
+        require(rc == 0 and len(lines) == len(iface.task.gait_library) and any(ln.startswith("trot:") for ln in lines),
+                f"cli gaits: exit {rc}, {lines}")
+        viz = Visualizer(iface.model, iface.info, max_update_frequency=100.0, record_tf=True)
+        t0 = time.perf_counter()
+        for t, x, u in zip(card["times"], card["states"], card["inputs"]):
+            viz.update(t, x, u)
+        viz_ms = (time.perf_counter() - t0) * 1e3 / len(viz.frames)
+        path = os.path.join(out_dir, "markers.json")
+        viz.export_json(path)
+        with open(path) as fh:
+            frames = json.load(fh)["frames"]
+        f0 = viz.frames[0]
+        require(len(frames) == len(viz.frames) >= 10 and all(np.isfinite(f.foot_positions).all()
+                                                             and np.isfinite(f.body_positions).all()
+                                                             for f in viz.frames),
+                f"visualizer: {len(viz.frames)} frames (about 20 at 100 Hz over 0.2 s) or non-finite markers")
+        require(float(np.abs(f0.foot_positions[:, 2]).max()) < 0.02,
+                f"visualizer: the first frame's soles at z {f0.foot_positions[:, 2].tolist()} (standing: ~0)")
+        out["gaits"] = lines
+        out["visualizer"] = {"frames": len(frames), "ms_per_update": viz_ms, "json_bytes": os.path.getsize(path)}
+        print(f"[16 cli] gaits: {lines}; Visualizer(record_tf=True) over the card's trajectory: {len(frames)} frames, "
+              f"{viz_ms:.3f} ms per update (the markers and the {iface.model.nb}-body tree on the card, one copy "
+              f"back), export_json {os.path.getsize(path)} bytes")
+    finally:
+        robots.REGISTRY["g1"] = saved
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[16 cli] phase wall {out['phase_s']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
@@ -2607,6 +2872,9 @@ def main():
     if "--variants" in sys.argv[1:]:
         print(json.dumps({"variants": dict(phase_variants(device, g1), robot=g1_robot)}))
         return 0
+    if "--cli" in sys.argv[1:]:
+        print(json.dumps({"cli": dict(phase_cli(device, g1_urdf()[0]), robot=g1_robot)}))
+        return 0
     ric = phase_riccati(device, libs["riccati"])
     mer = phase_merit(model, info, device, libs["merit"])
     lin = phase_linearize(model, info, device, libs["linearize"])
@@ -2622,6 +2890,8 @@ def main():
     dev_ctl = phase_device_controller(device, g1)
     cascade = phase_cascade(device, g1)
     variants = phase_variants(device, g1)
+    cli = phase_cli(device, g1_urdf()[0])
+    per_cli = {k: v / cli["f64"]["replans"] for k, v in cli["f64"]["kernel_runs"].items()}
     per_hard, per_ipm = variants["hard"]["kernel_runs_per_solve"], variants["ipm"]["kernel_runs_per_solve"]
     per_cascade = cascade["parity_f64"]["profile"]
     per_replan = ctl["sync"]["kernel_runs_per_replan"]
@@ -2635,21 +2905,24 @@ def main():
              launches_per_controller_replan=per_replan["linearize"],
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["linearize"],
              launches_per_cascade_tick=per_cascade["launches_per_tick"]["linearize"],
-             launches_per_hard_cone_solve=per_hard["linearize"], launches_per_ipm_solve=per_ipm["linearize"]),
+             launches_per_hard_cone_solve=per_hard["linearize"], launches_per_ipm_solve=per_ipm["linearize"],
+             launches_per_cli_replan=per_cli["linearize"]),
         dict(kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
                           src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
              b1_ms=ric["b1_ms"], registers=ric["registers"], g1=g1_entry(g1_res["riccati"], g1_counts["riccati"]),
              launches_per_controller_replan=per_replan["riccati"],
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["riccati"],
              launches_per_cascade_tick=per_cascade["launches_per_tick"]["riccati"],
-             launches_per_hard_cone_solve=per_hard["riccati"], launches_per_ipm_solve=per_ipm["riccati"]),
+             launches_per_hard_cone_solve=per_hard["riccati"], launches_per_ipm_solve=per_ipm["riccati"],
+             launches_per_cli_replan=per_cli["riccati"]),
         dict(kernel_entry("merit sums (K4)", src + "merit.cu", "bipedal_control_tpu/ops/pallas_merit.py:253",
                           counts["merit"], mer),
              registers=mer["registers"], g1=g1_entry(g1_res["merit"], g1_counts["merit"]),
              launches_per_controller_replan=per_replan["merit"],
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["merit"],
              launches_per_cascade_tick=per_cascade["launches_per_tick"]["merit"],
-             launches_per_hard_cone_solve=per_hard["merit"], launches_per_ipm_solve=per_ipm["merit"]),
+             launches_per_hard_cone_solve=per_hard["merit"], launches_per_ipm_solve=per_ipm["merit"],
+             launches_per_cli_replan=per_cli["merit"]),
         dict(k5_entry(wbc_k5, gj, dev_ctl),
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["gauss_jordan"],
              launches_per_cascade_tick=per_cascade["launches_per_tick"]["gauss_jordan"]),
@@ -2660,6 +2933,7 @@ def main():
                                      "controller": dev_ctl}}))
     print(json.dumps({"cascade": dict(cascade, robot=g1_robot)}))
     print(json.dumps({"variants": dict(variants, robot=g1_robot)}))
+    print(json.dumps({"cli": dict(cli, robot=g1_robot)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

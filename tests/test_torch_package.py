@@ -83,6 +83,29 @@ def test_package_imports_no_jax():
     assert int(proc.stdout.split()[0]) > 10  # every module was imported
 
 
+def test_package_imports_without_mujoco_and_matplotlib():
+    """Every module of the port imports where neither mujoco nor matplotlib
+    can be imported (the card's machine has neither): the modules that use
+    them import them at the call."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['mujoco'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import bipedal_control_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "print(len(names), ' '.join(n for n in names if '.sim.' in n or 'visualizer' in n or n.endswith('.cli')))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    count, names = proc.stdout.split(maxsplit=1)
+    assert int(count) > 10
+    for module in ("cli", "runtime.visualizer", "sim.interactive", "sim.mujoco_backend", "sim.terrain",
+                   "sim.urdf_mjcf"):
+        assert f"bipedal_control_tpu_torch.{module}" in names.split(), module
+
+
 def test_cuda_request_without_cuda_raises_and_does_not_compute():
     """Where CUDA is absent, asking for the CUDA path fails loudly; nothing
     quietly runs on the CPU instead."""

@@ -23,10 +23,13 @@ synthetic G1-shaped URDF; another name needs its assets), SURV_RICCATI
 (0), SURV_KYAW (0), SURV_CAPTURE ("on"; "off" drops captureStepping),
 SURV_CAP_KV/KP/MAXOFF/POSDB/VELDB (capture gains), SURV_SEED (7),
 SURV_OUT (build/SCENARIOS_torch.json).  The linearization and the merit
-run the production backends ("pallas": K1 and K4; with SURV_RICCATI at its
-default, K2+K3 too), in float32; the output names the backends.  The
-settings SURV_MATMUL_PRECISION and SURV_REGS of the reference tool are TPU
-and JAX knobs and have no counterpart: float32 matmuls run in full float32
+run the production backends (interface.production_settings: "pallas", K1
+and K4 where they implement the robot's configuration; with SURV_RICCATI at
+its default, K2+K3 too).  The episode runs in float32, except with
+SURV_RICCATI="parallel", whose dense scan refuses float32 and so runs in
+float64; the output names the backends and the dtype.  The settings
+SURV_MATMUL_PRECISION and SURV_REGS of the reference tool are TPU and JAX
+knobs and have no counterpart: float32 matmuls run in full float32
 (utils/precision.py).  The node step is dt 0.02 as in the reference tool.
 It never overwrites the committed SCENARIOS_r0*.json, the reference's TPU
 records.
@@ -47,7 +50,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from bipedal_control_tpu_torch.interface import make_interface, make_interface_for  # noqa: E402
+from bipedal_control_tpu_torch.interface import make_interface, make_interface_for, production_settings  # noqa: E402
 from bipedal_control_tpu_torch.robots import get_assets  # noqa: E402
 from bipedal_control_tpu_torch.sim.batch_loop import (  # noqa: E402
     BatchLoopConfig,
@@ -92,18 +95,18 @@ def main():
     cmd = (float(os.environ.get("SURV_CMD", "0.3")), 0.0, 0.0, 0.0)
     gait_name = os.environ.get("SURV_GAIT", "trot")
     robot = os.environ.get("SURV_ROBOT", "g1")
-    dtype = torch.float32
+    riccati = os.environ.get("SURV_RICCATI", "pallas")
+    dtype = torch.float64 if riccati == "parallel" else torch.float32
     path = output_path()
 
     iface, desc = load_robot(robot, dtype)
-    backends = {"linearize": "pallas", "riccati": os.environ.get("SURV_RICCATI", "pallas"), "merit": "pallas"}
-    iface = dataclasses.replace(
-        iface,
-        settings=dataclasses.replace(
-            iface.settings, dt=0.02, sqp_iterations=int(os.environ.get("SURV_SQP_ITERS", "1")),
-            riccati_penalty=float(os.environ.get("SURV_RICCATI_PENALTY", "1e4")), **backends,
-        ),
+    settings = production_settings(iface.settings, iface.info)
+    settings = dataclasses.replace(
+        settings, dt=0.02, sqp_iterations=int(os.environ.get("SURV_SQP_ITERS", "1")),
+        riccati_penalty=float(os.environ.get("SURV_RICCATI_PENALTY", "1e4")), riccati=riccati,
     )
+    iface = dataclasses.replace(iface, settings=settings)
+    backends = {"linearize": settings.linearize, "riccati": settings.riccati, "merit": settings.merit}
     capture_on = os.environ.get("SURV_CAPTURE", "on") != "off"
     if not capture_on:
         iface = dataclasses.replace(iface, task=dataclasses.replace(iface.task, capture=None))
