@@ -7,10 +7,17 @@ counterpart):
                   full MPC+WBC cascade (bringup_mujoco.launch + restart_mujoco.py)
   python -m bipedal_control_tpu_torch.cli gaits  — list the robot's gait
                   library (GaitKeyboardPublisher's menu)
+  python -m bipedal_control_tpu_torch.cli bench-scaling — solves/s
+                  weak-scaling table over mesh sizes 1, 2, 4, .., W ranks
+  torchrun --nproc-per-node N -m bipedal_control_tpu_torch.cli bench-scaling
+                  — the same over N cards, one process per card
 
 All take --robot {h1,g1,hunter,openloong} (assets resolved via
 $BIPEDAL_ASSETS), with the JAX command line's flags and defaults.  The JAX
-command line's bench and bench-scaling have no counterpart here yet.
+command line's bench (bench.py) has no counterpart here yet: it waits for
+the port's own benchmark.  bench-scaling initialises a world of one when no
+process group is initialised (under torchrun: torchrun's, env://), and its
+rank 0 prints one JSON line per scaling point.
 
 The commands run on the card: without CUDA they raise.  From Python,
 ``main(argv, device="cpu")`` runs them on the CPU and ``dtype=`` sets the
@@ -25,6 +32,7 @@ that needs it, so the module imports without them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -247,6 +255,43 @@ def cmd_gaits(args):
     return 0
 
 
+def cmd_bench_scaling(args):
+    """Weak-scaling table: solves/s at mesh sizes 1, 2, 4, .., W ranks
+    (parallel/scaling.py), on the front end of bench.py's problem with
+    one SQP iteration and the line-search candidates (1.0, 0.5)."""
+    import torch.distributed as dist
+
+    from .parallel.scaling import run_scaling_benchmark
+    from .solver.sqp import build_refs, initial_trajectory
+    from .utils.distributed import init_world
+
+    own = not dist.is_initialized()
+    if own:  # a world of one, or torchrun's (env://)
+        args.device = init_world(device=args.device)
+    try:
+        iface = _interface(args)
+        settings = dataclasses.replace(iface.settings, sqp_iterations=1, linesearch_alphas=(1.0, 0.5))
+        rm = iface.make_reference_manager()
+        rm.set_gait(iface.task.gait_library[args.gait], start_time=0.1)
+        frozen = rm.freeze(0.0)
+        refs = build_refs(iface.info, frozen.gait, frozen.swing, frozen.target, frozen.t_nodes)
+        x0 = torch.as_tensor(np.asarray(iface.initial_state), dtype=iface.dtype, device=iface.device)[None]
+        xs, us = initial_trajectory(iface.info, refs, x0, settings.num_intervals + 1)
+        points = run_scaling_benchmark(
+            iface.model, iface.info, settings, iface.Q, iface.R,
+            refs, frozen.t_nodes[None], x0, xs, us,
+            per_device_batch=args.per_device_batch, steps=args.steps,
+            chips_per_host=args.chips_per_host, device=args.device,
+        )
+        if dist.get_rank() == 0:
+            for pt in points:
+                print(json.dumps(dataclasses.asdict(pt)))
+    finally:
+        if own:
+            dist.destroy_process_group()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="bc-tpu-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -289,6 +334,15 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("gaits", help="list gait library")
     _add_robot_arg(p)
     p.set_defaults(fn=cmd_gaits)
+
+    p = sub.add_parser("bench-scaling", help="solves/s scaling table over mesh sizes")
+    _add_robot_arg(p)
+    p.add_argument("--gait", default="trot")
+    p.add_argument("--per-device-batch", type=int, default=32)
+    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--chips-per-host", type=int, default=None,
+                   help="enable the two-level (dcn, ici) mesh above this size")
+    p.set_defaults(fn=cmd_bench_scaling)
     return ap
 
 

@@ -13,13 +13,16 @@ defines (robot topology) followed by ``#include "<name>.cu"``.
 Libraries are cached under ``build/torch_kernels/`` at the repository root,
 keyed by a hash of the sources, the compile-time defines and the flags, so
 the first call in a fresh checkout builds everything and later calls load;
-:func:`build_libraries` starts one nvcc per library at once.  The
+:func:`build_libraries` starts one nvcc per library at once.  A lock file
+beside each library (``flock``, released when its process ends) makes
+processes that start together build it once.  The
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 each library.  Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -81,19 +84,23 @@ def build_library(name: str, source: str, defines: dict[str, str]) -> BuiltLibra
     lib_path = out_dir / f"lib{name}.so"
     log_path = out_dir / "ptxas.txt"
     seconds = 0.0
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        unit_path = out_dir / f"{name}_unit.cu"
-        unit_path.write_text(unit)
-        cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(unit_path)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {source}:\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # processes that start together (the ranks of a world) build a library
+    # once: the first holds the lock while it builds, the others then load
+    with open(out_dir / "build.flock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib_path.exists():
+            tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+            unit_path = out_dir / f"{name}_unit.cu"
+            unit_path.write_text(unit)
+            cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(unit_path)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {source}:\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+            log_path.write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, lib_path)
     built = BuiltLibrary(
         lib=ctypes.CDLL(str(lib_path)),
         ptxas_report=log_path.read_text() if log_path.exists() else "",

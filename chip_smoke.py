@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile   # phases 1-2, then a profile of the B=256 solve
     python3 chip_smoke.py --variants  # phases 1-2, then phase 15 (the solver variants)
     python3 chip_smoke.py --cli       # phases 1-2, then phase 16 (the command line)
+    python3 chip_smoke.py --fleet     # phases 1-2, then phase 17 (the fleet)
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: CUDA must be available; prints the card's name and power limit;
@@ -188,24 +189,44 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      machine has neither): ``sim`` and ``save_figure`` are held on the CPU
      (tests/test_torch_sim.py, tests/test_torch_cli.py), the controller that
      ``sim`` drives by phases 12-13;
+ 17. the fleet (parallel/, graft_entry.py, cli.py bench-scaling) in a world
+     of one on the card, in a fresh process that utils/distributed.spawn
+     starts (late in this process the profiler drops K1's records), which
+     the backend rule of utils/distributed.py puts on NCCL: (a) G1 at N = 67 on the production backends, float64,
+     B = 8: the meshed solve (make_mesh, shard_batch, make_batched_solver
+     with mesh=) against the unmeshed one (1e-12) and against the CPU's
+     plain versions at phase 7's bars; a CUDA-graph replay of the meshed
+     solve under torch.profiler runs K1, K2+K3 and K4 once each, an
+     op-by-op one launches each once through the wrappers (K1's outputs
+     written), and the two agree to 1e-12; (b) float32: run_scaling_benchmark at
+     per-device batch 256, 5 steps (solves/s, mean_defect), and fleet_stats
+     of a B = 256 meshed solve against the same reductions in torch on the
+     gathered arrays (1e-6 relative); (c) graft_entry.dryrun_multichip(2):
+     two spawned ranks share the card over gloo, with its own bars; (d)
+     graft_entry.entry()'s solve op by op against its CUDA-graph replay
+     (GraphedCall; 1e-12); (e) ``bench-scaling --robot g1 --per-device-batch
+     256 --steps 5`` through cli.main (the registry's G1 on this URDF): exit
+     0, one JSON line with ScalingPoint's fields;
 then a JSON line of G1's solve and loop results, a JSON line of the
 controller's, a JSON line of phase 13's, a JSON line of phase 14's, a JSON
-line of phase 15's, a JSON line of phase 16's, a JSON line of per-kernel
-results (with each model
+line of phase 15's, a JSON line of phase 16's, a JSON line of phase 17's,
+a JSON line of per-kernel results (with each model
 kernel's G1 figures under "g1", K5's at the device WBC's shapes, with its
 launches per controller tick, every kernel's launches per cascade replan
-and tick, and K1's, K2+K3's and K4's per hard-cone and ipm solve and per
-replan of the command line's plan) and, last, the device JSON line.
+and tick, and K1's, K2+K3's and K4's per hard-cone and ipm solve, per
+replan of the command line's plan and per meshed solve) and, last, the
+device JSON line.
 With --profile, phases 1-2 are followed by torch.profiler over warm B=256
 float32 solves of the production and "structured" configurations (device
 busy share, device time by kernel, the host's synchronising runtime calls).
 With --variants, phases 1-2 are followed by phase 15 alone and its JSON
-line; with --cli, by phase 16 alone and its JSON line.
+line; with --cli, by phase 16 alone and its JSON line; with --fleet, by
+phase 17 alone and its JSON line.
 
 The robot of phases 3-9 is H1-shaped (10 leg joints, 4 sole contacts, upper
 body welded into the base, ~47 kg): nx = nu = 22 and ne = 16 as for H1.
 When $BIPEDAL_ASSETS holds the H1 URDF, H1 itself is loaded instead.  The
-robot of phases 10-16 is the synthetic G1-shaped biped of
+robot of phases 10-17 is the synthetic G1-shaped biped of
 tests/data/g1_shaped_biped.urdf (nx = nu = 24), or G1's own URDF when
 $BIPEDAL_ASSETS holds it.  Weights,
 references and initial states are made from fixed numpy seeds.  Each
@@ -2822,6 +2843,166 @@ def phase_cli(device, g1_urdf: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ the fleet
+def tree_to(tree, device):
+    """A tensor tree (a tuple whose items are tensors or named tuples of them) on device."""
+    return tuple(type(a)(*(f.to(device) for f in a)) if isinstance(a, tuple) else a.to(device) for a in tree)
+
+
+def meshed_kernel_check(meshed, inputs, sharded) -> dict:
+    """How one meshed solve ran the kernels: a CUDA-graph replay of it
+    (built from the global inputs) under the profiler, whose records of a
+    replay are complete (late in a long process it has dropped the records
+    of op-by-op K1 launches: 0 of 1 in each window after phases 1-16); and
+    one op-by-op solve of the sharded inputs under the profiler too, with
+    the wrappers' launches and K1's NaN-filled outputs checked written
+    (k1_outputs_checked); the replay against the op-by-op solve."""
+    nr = len(NodeRefs._fields)
+    refs, *rest = inputs
+    graphed = GraphedCall(lambda *f: meshed(NodeRefs(*f[:nr]), *f[nr:]))
+    flat = [*refs, *rest]
+    graphed(flat)  # runs op by op and captures
+    dev, _ = trace(lambda: graphed(flat), cpu=False)
+    replay = graphed(flat)
+    box, written = [], []
+    reset_launches()
+    with k1_outputs_checked(written):
+        op_dev, _ = trace(lambda: box.append(meshed(*sharded)), cpu=False)
+    full = lambda t: t.full_tensor()
+    err = max(rel_err(full(a), full(b)) for a, b in zip(replay, box[0]) if a is not None)
+    return {"replay_runs": kernel_runs(dev), "wrapper_launches": read_launches(),
+            "op_by_op_traced": kernel_runs(op_dev), "k1_wrote_outputs": written, "replay_vs_op_by_op": err}
+
+
+def require_meshed_kernels(k: dict) -> None:
+    """K1, K2+K3 and K4 once in the replay's trace and once by the wrappers,
+    K1's launch writing its outputs, the replay equal to op by op (1e-12)."""
+    names = ("linearize", "riccati", "merit")
+    require(all(k["replay_runs"][n] == 1 and k["wrapper_launches"][n] == 1 for n in names)
+            and k["k1_wrote_outputs"] == [True] and k["replay_vs_op_by_op"] <= 1e-12,
+            f"fleet: a meshed solve must run K1, K2+K3 and K4 once each: {k}")
+
+
+def fleet_rank(rank: int, device, g1_urdf: str) -> dict:
+    """Phase 17 (a), (b), (d), (e) in the one rank of a world that
+    utils/distributed.spawn started on the card (see the module docstring)."""
+    import torch.distributed as dist
+
+    from bipedal_control_tpu_torch import graft_entry, robots
+    from bipedal_control_tpu_torch.parallel import make_mesh, shard_batch
+    from bipedal_control_tpu_torch.parallel.scaling import ScalingPoint, fleet_stats, run_scaling_benchmark
+
+    out = {}
+    backend = dist.get_backend()
+    require(backend == "nccl" and dist.get_world_size() == 1,
+            f"fleet: the world of one on the card took {backend} with {dist.get_world_size()} ranks")
+    set_full_f32_matmul()
+    g1, _ = load_g1(device)
+    mesh = make_mesh()
+    model, info, settings = g1.model, g1.info, g1.settings
+    # (a) float64 B = 8: meshed against unmeshed, and against the CPU's plain versions
+    t0 = time.perf_counter()
+    inputs = g1_front_end(g1, 8, 21)
+    meshed = make_batched_solver(model, info, settings, g1.Q, g1.R, mesh=mesh)
+    sharded = shard_batch(inputs, mesh)
+    sol = meshed(*sharded)
+    full = type(sol)(*(None if f is None else f.full_tensor() for f in sol))
+    unmeshed = make_batched_solver(model, info, settings, g1.Q, g1.R)(*inputs)
+    cpu = g1.to(device="cpu")
+    plain = make_batched_solver(cpu.model, info, settings, cpu.Q, cpu.R, device="cpu")(*tree_to(inputs, "cpu"))
+    vs_unmeshed = {n: rel_err(getattr(full, n), getattr(unmeshed, n)) for n in PARITY_BARS}
+    vs_cpu = solution_errors(full, plain)
+    same_step = bool(torch.equal(full.step_size.cpu(), plain.step_size))
+    kernels = meshed_kernel_check(meshed, inputs, sharded)
+    print(f"[17 fleet] (a) {backend}, world 1, mesh {tuple(mesh.mesh_dim_names)}; float64 B=8 meshed vs unmeshed: "
+          + " ".join(f"{n} {v:.2e}" for n, v in vs_unmeshed.items()) + " (bar 1e-12); vs the CPU's plain versions: "
+          + " ".join(f"{n} {v:.2e}" for n, v in vs_cpu.items()) + f" step_size equal {same_step}; kernel runs "
+          f"per meshed solve: {kernels}; {time.perf_counter() - t0:.1f} s")
+    require(all(v <= 1e-12 for v in vs_unmeshed.values()), f"fleet: meshed != unmeshed solve: {vs_unmeshed}")
+    require(all(vs_cpu[n] <= PARITY_BARS[n] for n in PARITY_BARS) and same_step,
+            f"fleet: the meshed solve left the CPU's plain versions: {vs_cpu}")
+    require_meshed_kernels(kernels)
+    out["meshed_f64"] = {"vs_unmeshed": vs_unmeshed, "vs_cpu_plain": vs_cpu, "kernels": kernels}
+    out["launches_per_meshed_solve"] = kernels["replay_runs"]
+    # (b) float32: the weak-scaling sweep at per-device batch 256, and fleet_stats against torch
+    t0 = time.perf_counter()
+    g32 = g1.to(dtype=torch.float32)
+    one = g1_front_end(g32, 1, None)
+    points = run_scaling_benchmark(g32.model, info, settings, g32.Q, g32.R, *one, per_device_batch=256, steps=5)
+    sol32 = make_batched_solver(g32.model, info, settings, g32.Q, g32.R, mesh=mesh)(
+        *shard_batch(g1_front_end(g32, 256, 5), mesh))
+    stats = [float(v) for v in fleet_stats(mesh, sol32.cost, sol32.defect_norm, sol32.step_size)]
+    cost, defect, step = (f.full_tensor().double() for f in (sol32.cost, sol32.defect_norm, sol32.step_size))
+    want = [float(cost.mean()), float(defect.mean()), float(defect.max()), float((step > 0).double().mean())]
+    stats_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(stats, want))
+    print(f"[17 fleet] (b) float32 sweep at per-device batch 256, 5 steps: "
+          + "; ".join(f"{p.n_devices} device(s), batch {p.batch}: {p.solves_per_s:.1f} solves/s, mean_defect "
+                      f"{p.mean_defect:.4e}" for p in points)
+          + f"; fleet_stats {stats} vs torch on the gathered arrays {want}: rel {stats_err:.2e} (bar 1e-6); "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(len(points) == 1 and points[0].batch == 256 and np.isfinite(points[0].mean_defect),
+            f"fleet: the sweep's points {points}")
+    require(stats_err <= 1e-6, f"fleet: fleet_stats {stats} != torch's {want}")
+    out["scaling_f32"] = {"points": [dataclasses.asdict(p) for p in points], "fleet_stats": stats,
+                          "fleet_stats_rel_err": stats_err}
+    # (d) the entry point, op by op and replayed from a CUDA graph
+    t0 = time.perf_counter()
+    fn, (refs, t_nodes, x0, xs, us) = graft_entry.entry()
+    k = len(refs)
+    flat = [*refs, t_nodes, x0, xs, us]
+    ref = fn(refs, t_nodes, x0, xs, us)
+    graphed = GraphedCall(lambda *a: fn(type(refs)(*a[:k]), *a[k:]))
+    graphed(flat)  # runs op by op and captures
+    replay = graphed(flat)
+    entry_err = {n: rel_err(getattr(replay, n), getattr(ref, n)) for n in PARITY_BARS}
+    print(f"[17 fleet] (d) entry(): x_traj {tuple(ref.x_traj.shape)}, {ref.x_traj.dtype}; a graph replay vs op by "
+          f"op: " + " ".join(f"{n} {v:.2e}" for n, v in entry_err.items()) + f" (bar 1e-12); "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(all(v <= 1e-12 for v in entry_err.values()) and bool(torch.isfinite(ref.x_traj).all()),
+            f"fleet: entry()'s replay left its op-by-op solve: {entry_err}")
+    out["entry"] = {"replay_vs_op_by_op": entry_err}
+    # (e) the command line's bench-scaling on the registry's G1 (this URDF)
+    saved = robots.REGISTRY["g1"]
+    robots.REGISTRY["g1"] = dataclasses.replace(saved, urdf=g1_urdf)
+    t0 = time.perf_counter()
+    try:
+        rc, stdout = cli_run(["bench-scaling", "--robot", "g1", "--per-device-batch", "256", "--steps", "5"],
+                             None, None)
+    finally:
+        robots.REGISTRY["g1"] = saved
+    rows = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+    print("\n".join(f"[17 fleet] (e) cli | {ln}" for ln in stdout.splitlines() if not ln.startswith("[config]")))
+    fields = [f.name for f in dataclasses.fields(ScalingPoint)]
+    require(rc == 0 and len(rows) == 1 and list(rows[0]) == fields and rows[0]["batch"] == 256,
+            f"fleet: bench-scaling exit {rc}, rows {rows}")
+    out["cli_bench_scaling"] = {"rows": rows, "s": time.perf_counter() - t0}
+    return out
+
+
+def phase_fleet(g1_urdf: str) -> dict:
+    """Phase 17: the scenario mesh, fleet telemetry, the weak-scaling sweep
+    and the entry points on the card (see the module docstring).  (a), (b),
+    (d) and (e) run in a fresh process, a world of one that
+    utils/distributed.spawn starts on the card: after phases 1-16 in this
+    process the profiler records no K1 run of a meshed solve, op by op or
+    replayed, while the wrapper launches K1 and its outputs are written;
+    (c) spawns its own two ranks."""
+    from bipedal_control_tpu_torch import graft_entry
+    from bipedal_control_tpu_torch.utils.distributed import spawn
+
+    t_phase = time.perf_counter()
+    out = spawn(fleet_rank, 1, g1_urdf)[0]
+    # (c) dryrun_multichip(2): two ranks share the card over gloo
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(2)
+    secs = time.perf_counter() - t0
+    print(f"[17 fleet] (c) dryrun_multichip(2) on the card: {dry}; {secs:.1f} s")
+    out["dryrun"] = {"ranks": dry, "s": secs}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[17 fleet] phase wall {out['phase_s']:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
@@ -2875,6 +3056,9 @@ def main():
     if "--cli" in sys.argv[1:]:
         print(json.dumps({"cli": dict(phase_cli(device, g1_urdf()[0]), robot=g1_robot)}))
         return 0
+    if "--fleet" in sys.argv[1:]:
+        print(json.dumps({"fleet": dict(phase_fleet(g1_urdf()[0]), robot=g1_robot)}))
+        return 0
     ric = phase_riccati(device, libs["riccati"])
     mer = phase_merit(model, info, device, libs["merit"])
     lin = phase_linearize(model, info, device, libs["linearize"])
@@ -2891,6 +3075,8 @@ def main():
     cascade = phase_cascade(device, g1)
     variants = phase_variants(device, g1)
     cli = phase_cli(device, g1_urdf()[0])
+    fleet = phase_fleet(g1_urdf()[0])
+    per_meshed = fleet["launches_per_meshed_solve"]
     per_cli = {k: v / cli["f64"]["replans"] for k, v in cli["f64"]["kernel_runs"].items()}
     per_hard, per_ipm = variants["hard"]["kernel_runs_per_solve"], variants["ipm"]["kernel_runs_per_solve"]
     per_cascade = cascade["parity_f64"]["profile"]
@@ -2906,7 +3092,7 @@ def main():
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["linearize"],
              launches_per_cascade_tick=per_cascade["launches_per_tick"]["linearize"],
              launches_per_hard_cone_solve=per_hard["linearize"], launches_per_ipm_solve=per_ipm["linearize"],
-             launches_per_cli_replan=per_cli["linearize"]),
+             launches_per_cli_replan=per_cli["linearize"], launches_per_meshed_solve=per_meshed["linearize"]),
         dict(kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
                           src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
              b1_ms=ric["b1_ms"], registers=ric["registers"], g1=g1_entry(g1_res["riccati"], g1_counts["riccati"]),
@@ -2914,7 +3100,7 @@ def main():
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["riccati"],
              launches_per_cascade_tick=per_cascade["launches_per_tick"]["riccati"],
              launches_per_hard_cone_solve=per_hard["riccati"], launches_per_ipm_solve=per_ipm["riccati"],
-             launches_per_cli_replan=per_cli["riccati"]),
+             launches_per_cli_replan=per_cli["riccati"], launches_per_meshed_solve=per_meshed["riccati"]),
         dict(kernel_entry("merit sums (K4)", src + "merit.cu", "bipedal_control_tpu/ops/pallas_merit.py:253",
                           counts["merit"], mer),
              registers=mer["registers"], g1=g1_entry(g1_res["merit"], g1_counts["merit"]),
@@ -2922,10 +3108,11 @@ def main():
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["merit"],
              launches_per_cascade_tick=per_cascade["launches_per_tick"]["merit"],
              launches_per_hard_cone_solve=per_hard["merit"], launches_per_ipm_solve=per_ipm["merit"],
-             launches_per_cli_replan=per_cli["merit"]),
+             launches_per_cli_replan=per_cli["merit"], launches_per_meshed_solve=per_meshed["merit"]),
         dict(k5_entry(wbc_k5, gj, dev_ctl),
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["gauss_jordan"],
-             launches_per_cascade_tick=per_cascade["launches_per_tick"]["gauss_jordan"]),
+             launches_per_cascade_tick=per_cascade["launches_per_tick"]["gauss_jordan"],
+             launches_per_meshed_solve=per_meshed["gauss_jordan"]),
     ]
     print(json.dumps({"g1": {"robot": g1_robot, "solve_b256": g1_res["main"], "dummy_loop": loop}}))
     print(json.dumps({"controller": dict(ctl, robot=g1_robot)}))
@@ -2934,6 +3121,7 @@ def main():
     print(json.dumps({"cascade": dict(cascade, robot=g1_robot)}))
     print(json.dumps({"variants": dict(variants, robot=g1_robot)}))
     print(json.dumps({"cli": dict(cli, robot=g1_robot)}))
+    print(json.dumps({"fleet": dict(fleet, robot=g1_robot)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -1,6 +1,6 @@
 """PyTorch port vs JAX reference: the command line's plan, sim and gaits
 (bipedal_control_tpu_torch/cli.py against bipedal_control_tpu/cli.py),
-float64 on the CPU.
+float64 on the CPU, and the port's bench-scaling.
 
 Both packages' robot registries are pointed at the test files by patching
 REGISTRY["g1"] (dataclasses.replace; no file of either package changes): the
@@ -16,6 +16,7 @@ the reference's base position at its printed precision.
 import contextlib
 import dataclasses
 import io
+import json
 import os
 import subprocess
 import sys
@@ -138,17 +139,34 @@ def test_sim_async_kalman_view_runs_headless(monkeypatch):
 
 
 def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
-    """Without CUDA every command raises unless device="cpu"; bench and
-    bench-scaling are not commands of the port; python -m runs the parser."""
+    """Without CUDA every command raises unless device="cpu"; bench is not
+    a command of the port (it waits for the port's benchmark); python -m
+    runs the parser."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["gaits", "--robot", "g1"])
-    for argv in (["bench"], ["bench-scaling"]):
-        with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
-            cli.main(argv, device="cpu")
+    with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
+        cli.main(["bench"], device="cpu")
     proc = subprocess.run([sys.executable, "-m", "bipedal_control_tpu_torch.cli", "--help"], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0 and "plan" in proc.stdout and "bench" not in proc.stdout.split("positional")[1]
+    assert proc.returncode == 0 and "{plan,sim,gaits,bench-scaling}" in proc.stdout
+
+
+def test_bench_scaling_prints_scaling_points():
+    """bench-scaling --robot g1 --per-device-batch 2 --steps 1 on the CPU:
+    exit 0, one JSON line per mesh size (a world of one it initialises and
+    closes) with ScalingPoint's fields."""
+    import torch.distributed as dist
+
+    from bipedal_control_tpu_torch.parallel.scaling import ScalingPoint
+
+    rc, out = _port(["bench-scaling", "--robot", "g1", "--per-device-batch", "2", "--steps", "1"])
+    rows = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    assert rc == 0 and not dist.is_initialized()
+    assert [list(r) for r in rows] == [[f.name for f in dataclasses.fields(ScalingPoint)]]
+    assert (rows[0]["n_devices"], rows[0]["n_hosts"], rows[0]["batch"]) == (1, 1, 2)
+    assert rows[0]["solves_per_s"] > 0 and np.isfinite(rows[0]["mean_defect"])
+    assert "backends: linearize pallas, riccati pallas, merit pallas" in out
 
 
 def test_sim_without_mujoco_raises_import_error(monkeypatch):

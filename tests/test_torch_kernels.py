@@ -52,8 +52,10 @@ from chip_smoke import (
     k1_outputs_checked,
     lean_problem,
     lean_solve,
+    meshed_kernel_check,
     profile_counts,
     quat_from_zyx,
+    require_meshed_kernels,
     solution_errors,
     variant_errors,
     wbc_inputs,
@@ -662,6 +664,63 @@ def test_srbd_runner_matches_cpu(g1_cuda):
     for got, want in zip(sols["card"], sols["cpu"]):
         errs = solution_errors(got, want)
         assert all(errs[n] <= PARITY_BARS[n] for n in PARITY_BARS), errs
+
+
+@pytest.fixture
+def world_of_one(cuda):
+    """A world of one on the card (utils/distributed.py: NCCL by its rule)."""
+    import torch.distributed as dist
+
+    from bipedal_control_tpu_torch.utils.distributed import init_world
+
+    init_world()
+    try:
+        yield dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_meshed_solver_matches_unmeshed(g1_cuda, world_of_one):
+    """chip_smoke.py phase 17(a): G1 float64 B = 8, production backends:
+    the meshed solve (a 1-D mesh over a world of one) equals the unmeshed
+    one to 1e-12, K1, K2+K3 and K4 once per meshed solve (a graph replay's
+    trace and the wrappers, chip_smoke.meshed_kernel_check)."""
+    from bipedal_control_tpu_torch.parallel import make_mesh, shard_batch
+
+    assert world_of_one == "nccl"
+    iface = g1_cuda
+    inputs = g1_front_end(iface, 8, 21)
+    mesh = make_mesh()
+    meshed = make_batched_solver(iface.model, iface.info, iface.settings, iface.Q, iface.R, mesh=mesh)
+    sharded = shard_batch(inputs, mesh)
+    got = meshed(*sharded)
+    want = make_batched_solver(iface.model, iface.info, iface.settings, iface.Q, iface.R)(*inputs)
+    for name in PARITY_BARS:
+        full = getattr(got, name).full_tensor()
+        err = float((full - getattr(want, name)).abs().max()) / max(1.0, float(getattr(want, name).abs().max()))
+        assert err <= 1e-12, (name, err)
+    require_meshed_kernels(meshed_kernel_check(meshed, inputs, sharded))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_fleet_stats_on_the_card(world_of_one, dtype):
+    """fleet_stats of card tensors, sharded over a 1-D and a 1 x 1
+    two-level mesh, against torch's reductions (1e-12 in float64, 1e-6
+    relative in float32)."""
+    from bipedal_control_tpu_torch.parallel import make_mesh, shard_batch
+    from bipedal_control_tpu_torch.parallel.scaling import batch_spec, fleet_stats, make_two_level_mesh
+
+    rng = np.random.default_rng(4)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    cost, defect, step = T(rng.uniform(1, 5, 256)), T(rng.uniform(0, 0.2, 256)), T(rng.choice([0.0, 0.5, 1.0], 256))
+    want = [float(cost.double().mean()), float(defect.double().mean()), float(defect.max()),
+            float((step > 0).double().mean())]
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    for mesh in (make_mesh(), make_two_level_mesh(1, 1)):
+        got = [float(v) for v in fleet_stats(mesh, *shard_batch((cost, defect, step), mesh, batch_spec(mesh)))]
+        np.testing.assert_allclose(got, want, rtol=tol, atol=0.0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
