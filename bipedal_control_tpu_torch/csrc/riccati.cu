@@ -15,14 +15,35 @@
 //   forward: du = -K dx - k,  dx' = A dx + B du + c
 //
 // Bound.  At B = 256, N = 67 (nx = nu = 22, ne = 16) the sweep needs 5.26 G
-// operations and 259 MB of traffic: 0.079 ms at the card's float32 rate.  The
-// time is one CTA's serial chain of 67 stages, each a run of barrier-separated
-// steps of a few hundred operations per thread, so the design shortens each
-// step rather than adding parallelism.
+// operations and 259 MB of traffic: 0.079 ms at the card's float32 rate (at
+// G1's shapes, nx = nu = 24, and B = 4096: 1.57 ms).  At B = 1 the time is one
+// CTA's serial chain of 67 stages, each a run of barrier-separated steps of a
+// few hundred operations per thread: latency, so the design shortens each
+// step rather than adding parallelism.  At large B it is the SM's issue slots
+// and shared-memory accesses, shared by the chains resident on it, which run
+// in waves.
 //
-// Design (one 256-thread CTA per scenario, two CTAs per SM).
+// Two builds of one kernel, riccati_kernel<T, NTH>: NTH = 256 or 128 threads
+// per scenario, with the same tiles as wide as NTH threads need (Tiles<NTH>),
+// so every output element gets the same operations in the same order and the
+// two give the same bits.  At G1's shapes in float32 the 256-thread build
+// holds 2 CTAs per SM (16 warps) and takes the shorter chain alone (B = 1:
+// 0.77 ms on an H100); the 128-thread build holds 4 (16 warps; 55,984 B of
+// shared memory a CTA, at most 128 registers a thread as the launch bound
+// asks), so that four independent chains, not two, share each SM: at B = 4096, 8
+// waves of 528 in place of 16 of 264 (its chain alone: 0.84 ms).  Its stage
+// loop is unrolled only in part (Tiles::kPivotUnroll, kDotUnroll): four CTAs
+// at different points of the fully unrolled loop outrun the instruction
+// cache.  ops/riccati_kernel.py picks the build per launch from the CUDA
+// occupancy query.  The 128-thread build is compiled in float32 only
+// (kWideBuild): in float64 a 128-thread CTA would hold no more per SM than a
+// 256-thread one (2, by shared memory), so the 256-thread build serves every
+// float64 batch.
+//
+// Design (one CTA per scenario).
 // - Shapes are compile-time: every loop has constant bounds, every thread has a
-//   fixed (row, column) tile, dot products of length NX or NU are unrolled, and
+//   fixed (row, column) tile, dot products of length NX or NU are unrolled (in
+//   part at 128 threads), and
 //   no index inside the stage or rollout loops is divided by a runtime value.
 // - Small products are register-tiled: a thread owns 2 rows x a few columns of
 //   its output and reuses each operand it reads from shared memory across the
@@ -42,8 +63,10 @@
 //   owners, so a pair is exactly two single pivots (19 barriers at H1's shapes
 //   instead of 38).  Each pivot's reciprocal is taken once, by the thread that
 //   holds the pair's 2 x 2 block, and every update multiplies by it, as the TPU
-//   kernel multiplies by 1 / piv (pallas_riccati.py:179).  Eliminated columns
-//   are not updated.  Why pairs, and not a 2 x 2 block inverse: the stage KKT
+//   kernel multiplies by 1 / piv (pallas_riccati.py:179).  The 256-thread
+//   build does not update eliminated columns; the 128-thread build updates
+//   them too (their values are never read again), which saves a test per
+//   column.  Why pairs, and not a 2 x 2 block inverse: the stage KKT
 //   of a redundant contact set is near-singular (condition ~1e9 with
 //   dual_eps), and an explicit 2 x 2 inverse there cancels catastrophically
 //   where two successive pivots do not.
@@ -52,12 +75,19 @@
 //   t-1's pieces whose size is a multiple of 16 bytes into the other half of a
 //   double-buffered stage area, and the warp copies the other pieces (in
 //   float32 c, qx, qu: 88 B) with element-sized cp.async; meanwhile the other
-//   warps compute G and H_xx, in which the last warp has no tile.  The rollout
+//   warps compute G and H_xx, in which, at 256 threads, the last warp has no
+//   tile (at G1's shapes in float32 every piece is a bulk copy, so the warp
+//   spends a few instructions on the copies before its tile).  The rollout
 //   keeps the inputs of RD - 1 steps in flight (A, B, K, c, k; RD = 4
 //   sub-slots laid over the stage area), started by the same warp, which the
 //   rollout leaves idle.
 // - S is kept unsymmetrized (U, with s as its last column) and symmetrized as
 //   P's product reads it, which saves a pass and a barrier.
+// - H_xx | h_x lives in U's storage (Smem::Hxx), which takes the 128-thread
+//   build under the 56 KB a CTA that four CTAs per SM allow: U's last read is
+//   P's product at the stage's start, H_xx is written after K, and U's
+//   product reads each element of H_xx in the thread that then writes the
+//   same element of U.
 // - Shared-memory accesses are the chain's cost, so two neighbouring elements
 //   at an even index go as one access wherever a thread reads or writes such a
 //   pair (pivot rows, the 2-row tiles' operand pairs); the working arrays'
@@ -84,7 +114,6 @@ constexpr int LDP = NU + NX + 1;    // columns of P = S [B | A | c]
 // neighbouring columns at an even index is one aligned shared-memory access
 constexpr int LDX = NXP + (NXP & 1);
 constexpr int LDPP = LDP + (LDP & 1);
-constexpr int NTH = 256;
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 // columns per thread so that 2-row tiles of a rows x cols output fit in n threads
@@ -93,32 +122,56 @@ __host__ __device__ constexpr int tile_cols(int rows, int cols, int n) {
   while (cdiv(rows, 2) * cdiv(cols, c) > n) ++c;
   return c;
 }
-constexpr int CT = [] {  // elimination tile: 2 x CT, CT even so a pivot pair's columns share a tile
+// elimination tile: 2 x c, c even so a pivot pair's columns share a tile
+__host__ __device__ constexpr int elim_cols(int n) {
   int c = 2;
-  while (cdiv(NKP, 2) * cdiv(W, c) > NTH) c += 2;
+  while (cdiv(NKP, 2) * cdiv(W, c) > n) c += 2;
   return c;
-}();
-constexpr int CG = cdiv(W, CT);
-constexpr int WP = CT * CG;                  // pivot row length, padded to whole tiles
-constexpr int P2_CT = tile_cols(NU, LDP, NTH);  // [H_uu | H_ux | h_u]
-constexpr int P2_CG = cdiv(LDP, P2_CT);
-constexpr int P1_CT = tile_cols(NX, LDP, NTH);
-constexpr int P1_CG = cdiv(LDP, P1_CT);
-constexpr int P4_CT = [] {  // G = H_uu [K|k] - [H_ux|h_u] and [H_xx|h_x] side by side
+}
+// G = H_uu [K|k] - [H_ux|h_u] and [H_xx|h_x] side by side in n threads
+__host__ __device__ constexpr int g_cols(int n) {
   int c = 1;
-  while (cdiv(NU, 2) * cdiv(NXP, c) + cdiv(NX, 2) * cdiv(NXP, c) > NTH) ++c;
+  while (cdiv(NU, 2) * cdiv(NXP, c) + cdiv(NX, 2) * cdiv(NXP, c) > n) ++c;
   return c;
-}();
-constexpr int P4_CG = cdiv(NXP, P4_CT);
-constexpr int P4_NA = cdiv(NU, 2) * P4_CG;  // threads of G; the next ones take H_xx
-constexpr int P5_CT = tile_cols(NX, NXP, NTH);
-constexpr int P5_CG = cdiv(NXP, P5_CT);
-static_assert(CT <= 8 && P1_CT <= 8 && P2_CT <= 8 && P4_CT <= 8 && P5_CT <= 8,
-              "stage shapes too large for 256 threads");
-static_assert(NX <= NTH && NU <= NTH, "rollout takes one thread per row");
-// The warp that starts the asynchronous copies: the last, which the phase
-// after K (176 threads at H1's shapes) and the rollout (max(NX, NU)) leave idle.
-constexpr int kCopyWarp = NTH / 32 - 1;
+}
+
+// The thread -> tile maps of one block size NTH: the same tiles as wide as
+// NTH threads need, so each output element gets the same operations in the
+// same order in every build.
+template <int NTH>
+struct Tiles {
+  static constexpr int CT = elim_cols(NTH);
+  static constexpr int CG = cdiv(W, CT);
+  static constexpr int WP = CT * CG;  // pivot row length, padded to whole tiles
+  static constexpr int P2_CT = tile_cols(NU, LDP, NTH);  // [H_uu | H_ux | h_u]
+  static constexpr int P2_CG = cdiv(LDP, P2_CT);
+  static constexpr int P1_CT = tile_cols(NX, LDP, NTH);
+  static constexpr int P1_CG = cdiv(LDP, P1_CT);
+  static constexpr int P4_CT = g_cols(NTH);
+  static constexpr int P4_CG = cdiv(NXP, P4_CT);
+  static constexpr int P4_NA = cdiv(NU, 2) * P4_CG;  // threads of G; the next ones take H_xx
+  static constexpr int P5_CT = tile_cols(NX, NXP, NTH);
+  static constexpr int P5_CG = cdiv(NXP, P5_CT);
+  // The warp that starts the asynchronous copies: the last, which the
+  // rollout (max(NX, NU) threads) leaves idle, and at 256 threads the phase
+  // after K too (176 threads at H1's shapes)
+  static constexpr int kCopyWarp = NTH / 32 - 1;
+  // Unrolling of the pivot-pair loop and of the products' k loops, and
+  // whether a tile skips its eliminated columns: at 256 threads the whole
+  // stage unrolled, for the shortest chain alone; at 128 threads the four
+  // CTAs of an SM run different parts of the stage loop at once, and the
+  // loop fully unrolled (~134 KB of code at G1's shapes) outruns the
+  // instruction cache, so it is unrolled in part, and a tile updates its
+  // eliminated columns too (never read again) rather than test each column
+  static constexpr int kPivotUnroll = NTH == 256 ? NKP / 2 : 2;
+  static constexpr int kDotUnroll = NTH == 256 ? (NX > NU ? NX : NU) : 8;
+  static constexpr bool kSkipEliminated = NTH == 256;
+  static_assert(NTH % 32 == 0, "whole warps");
+  static_assert(CT <= 2048 / NTH && P1_CT <= 2048 / NTH && P2_CT <= 2048 / NTH && P4_CT <= 2048 / NTH &&
+                    P5_CT <= 2048 / NTH,
+                "stage shapes too large for this block size");
+  static_assert(NX <= NTH && NU <= NTH, "rollout takes one thread per row");
+};
 
 // --- the stage area: pieces of one stage, each at a 16-byte aligned offset
 enum Piece { kA, kB, kQxx, kQuu, kQux, kC, kD, kE, kMask, kc, kqx, kqu, kPieces };
@@ -137,13 +190,17 @@ template <typename T> __host__ __device__ constexpr int piece_off(int p) {
 }
 
 // --- working set after the two stage slots (offsets in elements)
-template <typename T> struct Smem {
-  static constexpr int slot = piece_off<T>(kPieces);
+template <typename T> constexpr int kSlot = piece_off<T>(kPieces);
+template <typename T, int NTH> struct Smem {
+  static constexpr int WP = Tiles<NTH>::WP;
+  static constexpr int slot = kSlot<T>;
   static constexpr int U = 2 * slot;                          // NX x NXP (stride LDX): unsymmetrized S | s
+  // H_xx | h_x in U's storage (Design, above); a tile of U's product whose
+  // padding columns are clamped reads column NX, which the same tile holds
+  static constexpr int Hxx = U;
   static constexpr int P = U + padded<T>(NX * LDX);           // NX x LDP (stride LDPP): S B | S A | S c + s
   static constexpr int Aug = P + padded<T>(NX * LDPP);        // NKP x WP: the augmented KKT (H_uu unregularized)
-  static constexpr int Hxx = Aug + padded<T>(NKP * WP);       // NX x NXP (stride LDX): H_xx | h_x
-  static constexpr int Kx = Hxx + padded<T>(NX * LDX);        // NU x NXP (stride LDX): K | k
+  static constexpr int Kx = Aug + padded<T>(NKP * WP);        // NU x NXP (stride LDX): K | k
   static constexpr int G = Kx + padded<T>(NU * LDX);          // NU x NXP (stride LDX): H_uu [K|k] - [H_ux|h_u]
   static constexpr int row = G + padded<T>(NU * LDX);         // 2 x 2 x WP: the pivot pair's rows
   static constexpr int col = row + padded<T>(4 * WP);         // 2 x NKP x 2: the pivot pair's columns
@@ -154,13 +211,23 @@ template <typename T> struct Smem {
   static constexpr size_t bytes = (size_t)total * sizeof(T) + 64;  // + the mbarriers
 };
 
+// CTAs per SM the build is compiled for: as many as 128 registers a thread
+// allow (2 of 256 threads, 4 of 128), or as many as the SM's 233,472 B of
+// shared memory hold at 1 KB reserved per CTA, if fewer (then its registers
+// are not cut to 128)
+template <typename T, int NTH> __host__ __device__ constexpr int min_blocks() {
+  const int by_regs = 65536 / (128 * NTH);
+  const int by_smem = (int)(233472 / (Smem<T, NTH>::bytes + 1024));
+  return by_smem < 1 ? 1 : by_smem < by_regs ? by_smem : by_regs;
+}
+
 // The rollout's step inputs A, B, K, c, k, in a ring of RD sub-slots laid
 // over the two stage slots (K in Qux's shape, k in qu's)
 template <typename T> __host__ __device__ constexpr int roll_off(int q) {  // A, B, K, c, k
   return (q > 0 ? padded<T>(NX * NX) : 0) + (q > 1 ? padded<T>(NX * NU) : 0) + (q > 2 ? padded<T>(NU * NX) : 0) +
          (q > 3 ? padded<T>(NX) : 0) + (q > 4 ? padded<T>(NU) : 0);
 }
-template <typename T> constexpr int kRollFit = 2 * Smem<T>::slot / roll_off<T>(5);  // sub-slots that fit
+template <typename T> constexpr int kRollFit = 2 * kSlot<T> / roll_off<T>(5);  // sub-slots that fit
 template <typename T> constexpr int RD = kRollFit<T> < 4 ? kRollFit<T> : 4;
 
 // --- asynchronous copies and barriers (PTX)
@@ -238,10 +305,10 @@ __device__ __forceinline__ void store2(T* p, T a, T b) {
 // warp arms the mbarrier with the bulk copies' bytes and starts them; the
 // warp copies the pieces that are not a multiple of 16 bytes element by
 // element (cp.async) and commits them as one group, empty when !active.
-template <typename T, int NP>
+template <typename T, int NTH, int NP>
 __device__ __forceinline__ void start_copies(T* slot, const int (&pieces)[NP], const int (&offs)[NP],
                                              const T* const (&src)[NP], size_t st, uint64_t* bar, bool active) {
-  const int lane = threadIdx.x - 32 * kCopyWarp;
+  const int lane = threadIdx.x - 32 * Tiles<NTH>::kCopyWarp;
   if (lane == 0 && active) {
     uint32_t bytes = 0;
 #pragma unroll
@@ -271,11 +338,16 @@ struct StageInputs {
   const T* p[kPieces];  // A, B, Qxx, Quu, Qux, C, D, e, mask, c, qx, qu: (Bn, N, ...) each
 };
 
-template <typename T>
-__global__ void __launch_bounds__(NTH, 2)
+template <typename T, int NTH>
+__global__ void __launch_bounds__(NTH, min_blocks<T, NTH>())
     riccati_kernel(const StageInputs<T> in, const T* __restrict__ dx0, T* __restrict__ Kout, T* __restrict__ kout,
                    T* __restrict__ dxout, T* __restrict__ duout, int N, T dual_eps, T huu_reg) {
-  using L = Smem<T>;
+  using L = Smem<T, NTH>;
+  using TL = Tiles<NTH>;
+  constexpr int CT = TL::CT, CG = TL::CG, WP = TL::WP, P1_CT = TL::P1_CT, P1_CG = TL::P1_CG, P2_CT = TL::P2_CT,
+                P2_CG = TL::P2_CG, P4_CT = TL::P4_CT, P4_CG = TL::P4_CG, P4_NA = TL::P4_NA, P5_CT = TL::P5_CT,
+                P5_CG = TL::P5_CG, kCopyWarp = TL::kCopyWarp, kPivotUnroll = TL::kPivotUnroll,
+                kDotUnroll = TL::kDotUnroll;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + (size_t)L::total * sizeof(T));
@@ -362,7 +434,7 @@ __global__ void __launch_bounds__(NTH, 2)
   constexpr int stage_offs[kPieces] = {piece_off<T>(kA), piece_off<T>(kB), piece_off<T>(kQxx), piece_off<T>(kQuu),
                                        piece_off<T>(kQux), piece_off<T>(kC), piece_off<T>(kD), piece_off<T>(kE),
                                        piece_off<T>(kMask), piece_off<T>(kc), piece_off<T>(kqx), piece_off<T>(kqu)};
-  start_copies<T>(sm, stage_pieces, stage_offs, in.p, sb + N - 1, &bars[0], true);
+  start_copies<T, NTH>(sm, stage_pieces, stage_offs, in.p, sb + N - 1, &bars[0], true);
   if (tid / 32 == kCopyWarp) cp_async_wait_all();
   __syncthreads();
 
@@ -399,7 +471,7 @@ __global__ void __launch_bounds__(NTH, 2)
 #pragma unroll
         for (int j = 0; j < P1_CT; ++j) acc[a][j] = T(0);
       const int r0 = p1r, r1 = p1r + 1 < NX ? p1r + 1 : NX - 1;
-#pragma unroll
+#pragma unroll(kDotUnroll)
       for (int k = 0; k < NX; ++k) {
         T u0, u1;  // U[k][r0], U[k][r0 + 1] (a padding column when r0 + 1 == NX)
         load2(U + k * LDX + r0, u0, u1);
@@ -434,7 +506,7 @@ __global__ void __launch_bounds__(NTH, 2)
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int j = 0; j < P2_CT; ++j) acc[a][j] = T(0);
-#pragma unroll
+#pragma unroll(kDotUnroll)
       for (int k = 0; k < NX; ++k) {
         T b0, b1;  // B[k][r0], B[k][r0 + 1] (rows past NU are never stored)
         load_pair<NU % 2 == 0>(Bs + k * NU + r0, b0, b1);
@@ -483,7 +555,7 @@ __global__ void __launch_bounds__(NTH, 2)
     // pivot p+1's row and column through pivot p itself from the buffers
     // (p+1's row: R1 - C_p[p+1] n0, its column: C1 - e0 n0[p+1]), in the same
     // operations as their owners, so the pair is exactly two single pivots
-#pragma unroll
+#pragma unroll(kPivotUnroll)
     for (int p = 0; p < NKP; p += 2) {
       const int cb = (p >> 1) & 1;
       if (el_on && ec0 + CT > p + 2) {  // tiles of eliminated columns are done
@@ -510,7 +582,7 @@ __global__ void __launch_bounds__(NTH, 2)
         for (int j = 0; j < CT; ++j) {
           const T n0 = x0[j] * rinv0;
           const T n1 = fma(-cp1, n0, x1[j]) * rinv1;
-          if (ec0 + j >= p + 2) {  // eliminated columns are not updated
+          if (!TL::kSkipEliminated || ec0 + j >= p + 2) {
 #pragma unroll
             for (int a = 0; a < 2; ++a) v[a][j] = fma(-e1[a], n1, fma(-e0[a], n0, v[a][j]));
           }
@@ -538,8 +610,8 @@ __global__ void __launch_bounds__(NTH, 2)
 
     // stage t-1's inputs, started by the copy warp while the others compute G and H_xx
     if (it + 1 < N)
-      start_copies<T>(sm + ((it + 1) & 1) * L::slot, stage_pieces, stage_offs, in.p, st - 1, &bars[(it + 1) & 1],
-                      true);
+      start_copies<T, NTH>(sm + ((it + 1) & 1) * L::slot, stage_pieces, stage_offs, in.p, st - 1,
+                           &bars[(it + 1) & 1], true);
 
     // G = H_uu [K | k] - [H_ux | h_u]  beside  [H_xx | h_x] = [Qxx | qx] + A' [S A | S c + s]
     if (p4a_on || p4b_on) {
@@ -554,7 +626,7 @@ __global__ void __launch_bounds__(NTH, 2)
 #pragma unroll
       for (int j = 0; j < P4_CT; ++j) cc[j] = p4c + j < NXP ? p4c + j : NX;
       if (p4a_on) {
-#pragma unroll
+#pragma unroll(kDotUnroll)
         for (int k = 0; k < NU; ++k) {
           const T h0 = Huu[r0 * WP + k], h1 = Huu[r1 * WP + k];
 #pragma unroll
@@ -566,7 +638,7 @@ __global__ void __launch_bounds__(NTH, 2)
         }
       } else {
         const T* As = cur + piece_off<T>(kA);
-#pragma unroll
+#pragma unroll(kDotUnroll)
         for (int k = 0; k < NX; ++k) {
           T a0, a1;  // A[k][r0], A[k][r0 + 1]
           load_pair<NX % 2 == 0>(As + k * NX + r0, a0, a1);
@@ -602,7 +674,7 @@ __global__ void __launch_bounds__(NTH, 2)
       T acc[2][P5_CT];
 #pragma unroll
       for (int j = 0; j < P5_CT; ++j) acc[0][j] = Hxx[r0 * LDX + cc[j]], acc[1][j] = Hxx[r1 * LDX + cc[j]];
-#pragma unroll
+#pragma unroll(kDotUnroll)
       for (int k = 0; k < NU; ++k) {
         T k0, k1, h0, h1;  // K[k][r0], K[k][r0 + 1], H_ux[k][r0], H_ux[k][r0 + 1]
         load2(Kx + k * LDX + r0, k0, k1);
@@ -638,7 +710,7 @@ __global__ void __launch_bounds__(NTH, 2)
   uint64_t* const rbars = bars + 2;
 #pragma unroll
   for (int q = 0; q < R - 1; ++q)
-    start_copies<T>(sm + q * roll_off<T>(5), roll_pieces, roll_offs, roll_src, sb + q, &rbars[q], q < N);
+    start_copies<T, NTH>(sm + q * roll_off<T>(5), roll_pieces, roll_offs, roll_src, sb + q, &rbars[q], q < N);
   T* const dxs = sm + L::dx;
   T* const dus = sm + L::du;
   T* const dxo = dxout + (size_t)b * (N + 1) * NX;
@@ -652,8 +724,8 @@ __global__ void __launch_bounds__(NTH, 2)
     const size_t st = sb + t;
     const int q = t % R, qn = (t + R - 1) % R;  // compile-time divisor
     T* const cur = sm + q * roll_off<T>(5);
-    start_copies<T>(sm + qn * roll_off<T>(5), roll_pieces, roll_offs, roll_src, st + R - 1, &rbars[qn],
-                    t + R - 1 < N);
+    start_copies<T, NTH>(sm + qn * roll_off<T>(5), roll_pieces, roll_offs, roll_src, st + R - 1, &rbars[qn],
+                         t + R - 1 < N);
     mbar_wait(&rbars[q], (t / R) & 1);
     const T* x = dxs + (t & 1) * NX;
     T* xn = dxs + ((t + 1) & 1) * NX;
@@ -684,44 +756,67 @@ __global__ void __launch_bounds__(NTH, 2)
   }
 }
 
+// The 128-thread build exists in float32 only (the header's second paragraph)
+template <typename T> constexpr bool kWideBuild = sizeof(T) == 4;
+
+template <typename T, int NTH>
+int launch_build(const StageInputs<T>& in, const void* dx0, void* K, void* k, void* dx, void* du, int Bn, int N,
+                 double dual_eps, double huu_reg, void* stream) {
+  const size_t smem = Smem<T, NTH>::bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(riccati_kernel<T, NTH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  riccati_kernel<T, NTH><<<Bn, NTH, smem, (cudaStream_t)stream>>>(in, (const T*)dx0, (T*)K, (T*)k, (T*)dx, (T*)du,
+                                                                   N, (T)dual_eps, (T)huu_reg);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* const* ins, const void* dx0, void* K, void* k, void* dx, void* du, int Bn, int N,
-           double dual_eps, double huu_reg, void* stream) {
+           double dual_eps, double huu_reg, int threads, void* stream) {
   StageInputs<T> in;
   for (int p = 0; p < kPieces; ++p) in.p[p] = static_cast<const T*>(ins[p]);
-  const size_t smem = Smem<T>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(riccati_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  riccati_kernel<T><<<Bn, NTH, smem, (cudaStream_t)stream>>>(in, (const T*)dx0, (T*)K, (T*)k, (T*)dx, (T*)du, N,
-                                                              (T)dual_eps, (T)huu_reg);
-  return (int)cudaGetLastError();
+  if (threads == 256) return launch_build<T, 256>(in, dx0, K, k, dx, du, Bn, N, dual_eps, huu_reg, stream);
+  if constexpr (kWideBuild<T>)
+    if (threads == 128) return launch_build<T, 128>(in, dx0, K, k, dx, du, Bn, N, dual_eps, huu_reg, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int NTH>
+int occupancy() {
+  const size_t smem = Smem<T, NTH>::bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(riccati_kernel<T, NTH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, riccati_kernel<T, NTH>, NTH, smem);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
 
 // Inputs in the order A, B, Qxx, Quu, Qux, C, D, e, mask, c, qx, qu, each
-// (Bn, N, ...) contiguous and 16-byte aligned; the shapes are the compiled ones.
+// (Bn, N, ...) contiguous and 16-byte aligned; the shapes are the compiled
+// ones; threads is the build: 256 or 128 threads per scenario.
 #define RICCATI_ENTRY(NAME, T)                                                                                \
   extern "C" int NAME(const void* const* ins, const void* dx0, void* K, void* k, void* dx, void* du, int Bn, \
-                      int N, double dual_eps, double huu_reg, void* stream) {                                \
-    return launch<T>(ins, dx0, K, k, dx, du, Bn, N, dual_eps, huu_reg, stream);                              \
+                      int N, double dual_eps, double huu_reg, int threads, void* stream) {                   \
+    return launch<T>(ins, dx0, K, k, dx, du, Bn, N, dual_eps, huu_reg, threads, stream);                     \
   }
 
 RICCATI_ENTRY(riccati_solve_f32, float)
 RICCATI_ENTRY(riccati_solve_f64, double)
 
-extern "C" int riccati_smem_bytes(int f64) { return (int)(f64 ? Smem<double>::bytes : Smem<float>::bytes); }
-extern "C" int riccati_block_threads() { return NTH; }
-
-template <typename T>
-static int riccati_occupancy() {
-  const size_t smem = Smem<T>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(riccati_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int n = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, riccati_kernel<T>, NTH, smem);
-  return err == cudaSuccess ? n : -(int)err;
+// shared bytes per CTA of the float32 (f64 = 0) or float64 build of `threads`, 0 for no such build
+extern "C" int riccati_smem_bytes(int f64, int threads) {
+  if (threads == 256) return (int)(f64 ? Smem<double, 256>::bytes : Smem<float, 256>::bytes);
+  if (threads == 128) return f64 ? 0 : (int)Smem<float, 128>::bytes;
+  return 0;
 }
-// resident CTAs per SM of the float32 (4) or float64 (8) kernel, or -(CUDA error)
-extern "C" int riccati_blocks_per_sm(int dtype_bytes) {
-  return dtype_bytes == 4 ? riccati_occupancy<float>() : riccati_occupancy<double>();
+extern "C" int riccati_block_threads(int threads) { return threads == 256 || threads == 128 ? threads : 0; }
+// resident CTAs per SM of the float32 (4) or float64 (8) build of `threads`,
+// 0 for no such build (float64 at 128 threads), or -(CUDA error)
+extern "C" int riccati_blocks_per_sm(int dtype_bytes, int threads) {
+  if (threads == 256) return dtype_bytes == 4 ? occupancy<float, 256>() : occupancy<double, 256>();
+  if (threads == 128) return dtype_bytes == 4 ? occupancy<float, 128>() : 0;
+  return -(int)cudaErrorInvalidValue;
 }

@@ -114,11 +114,11 @@ def resident_per_sm(lib, name: str, dtype_bytes: int, *shape: int) -> tuple[int,
     """(blocks, warps) of a library's kernel resident on one SM, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor through the library's
     ``<name>_blocks_per_sm(dtype_bytes, *shape)`` and
-    ``<name>_block_threads()``."""
+    ``<name>_block_threads(*shape)``."""
     blocks = getattr(lib, f"{name}_blocks_per_sm")(dtype_bytes, *shape)
     if blocks < 0:
         raise RuntimeError(f"{name}: CUDA error {-blocks} in the occupancy query")
-    threads = getattr(lib, f"{name}_block_threads")()
+    threads = getattr(lib, f"{name}_block_threads")(*shape)
     return blocks, blocks * ((threads + 31) // 32)
 
 

@@ -579,14 +579,17 @@ def phase_device():
 
 def ptxas_summary(report: str) -> list[str]:
     """'<dtype>: <registers> regs, <spill stores>' per kernel entry (K5's
-    entries named by their CTA shape: '<dtype> L64: ...')."""
+    entries named by their CTA shape: '<dtype> L64: ...'; K2+K3's by their
+    threads per scenario: '<dtype> 128t: ...')."""
     out, dtype, spill = [], None, ""
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '\S*?I([df])(EE|NS_4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E)", ln)
+        m = re.search(r"Compiling entry function '\S*?I([df])(EE|Li(\d+)EE|NS_4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E)", ln)
         if m:
             dtype, spill = ("f64" if m.group(1) == "d" else "f32"), ""
-            if m.group(3):  # K5's Tile<WR, WC, WGR, WGC, ...>: 8 WR WGR rows
-                wr, wgr = int(m.group(3)), int(m.group(5))
+            if m.group(3):  # K2+K3's riccati_kernel<T, NTH>
+                dtype += f" {m.group(3)}t"
+            if m.group(4):  # K5's Tile<WR, WC, WGR, WGC, ...>: 8 WR WGR rows
+                wr, wgr = int(m.group(4)), int(m.group(6))
                 dtype += {40: " S40", 128: " L64", 192: " T64"}[8 * wr * wgr]
         elif dtype and "spill stores" in ln:
             spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
@@ -668,12 +671,15 @@ def riccati_barriers_per_stage(nu: int, ne: int) -> int:
     return (nu + ne + 1) // 2 + 5
 
 
-def phase_riccati(device, lib, shapes=(22, 22, 16), tag="3 riccati"):
+def phase_riccati(device, lib, shapes=(22, 22, 16), tag="3 riccati", wide_batch=None):
     """K2+K3 vs plain at the stage shapes (nx, nu, ne).  f32 bar 1e-3: the problem is stable and well
     conditioned (unit-dominant Hessians, dual_eps = 1.2e-5 in f32), so two
     float32 evaluations of the same sweep in different summation orders
     agree to ~1e-5; 1e-3 leaves room without hiding a wrong entry (a wrong
-    element of K is O(0.1))."""
+    element of K is O(0.1)).  wide_batch: a float32 batch past the
+    256-thread build's residency, where the wrapper takes the 128-thread
+    build; it is checked against plain at the same bar and timed beside the
+    256-thread build (out["wide"])."""
     out = {}
     B, N, (nx, nu, ne) = 256, N_NODES, shapes
     for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
@@ -699,21 +705,70 @@ def phase_riccati(device, lib, shapes=(22, 22, 16), tag="3 riccati"):
     require(err <= 1e-3, f"riccati kernel disagrees at B=1 in float32: {err:.3e}")
     out["b1_ms"] = cuda_time_ms(lambda: riccati_kernel.riccati_solve_cuda(nodes1, masks1, dx01, *regs), 50)
     out["ms_m67"] = out["b1_ms"]  # B = 1: the 67 stages of one scenario
-    out["warps_per_sm"] = occupancy(lib.lib, "riccati", tag)
+    # the 128-thread build's chain alone (the wrapper takes it above the 256-thread build's residency)
+    b1_wide_ms = cuda_time_ms(lambda: riccati_kernel._launch(nodes1, masks1, dx01, *regs, 128), 50)
+    out["warps_per_sm"] = occupancy(lib.lib, "riccati", tag, 256)
+    occupancy(lib.lib, "riccati", f"{tag} 128t", 128)
     s = 4
     stage_in = 2 * nx * nx + 2 * nx * nu + nu * nu + ne * nx + ne * nu + 2 * nx + nu + 2 * ne
     stage_out = nu * nx + 2 * nu
     out.update(bound(s * (B * N * (stage_in + stage_out) + B * nx + B * (N + 1) * nx), k23_ops(B, N, nx, nu, ne)))
     print(f"[{tag}] float32 B={B}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
           f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    if wide_batch is not None:
+        out["wide"] = riccati_wide(wide_batch, N, (nx, nu, ne), device, tag)
+        out["wide"]["b1_128t_ms"] = b1_wide_ms
     ptx = ptxas_summary(lib.ptxas_report)
     out["registers"] = " | ".join(ptx)
-    smem = {d: lib.lib.riccati_smem_bytes(f) for d, f in (("f32", 0), ("f64", 1))}
-    print(f"[{tag}] float32 B=1: kernel {out['b1_ms']:.4f} ms (max rel err {err:.2e}, bar 1e-3); "
+    smem = {f"{d} {th}t": lib.lib.riccati_smem_bytes(f, th) for d, f, th in (("f32", 0, 256), ("f32", 0, 128),
+                                                                              ("f64", 1, 256))}
+    print(f"[{tag}] float32 B=1: kernel {out['b1_ms']:.4f} ms, 128-thread build {b1_wide_ms:.4f} ms "
+          f"(max rel err {err:.2e}, bar 1e-3); "
           f"{out['ms'] * 1e3 / N:.2f} us/stage at B={B}, {out['b1_ms'] * 1e3 / N:.2f} us/stage at B=1; "
           f"{riccati_barriers_per_stage(nu, ne)} barriers/stage; ptxas {' | '.join(ptx)}; "
-          f"shared memory per CTA f32 {smem['f32']} B, f64 {smem['f64']} B")
+          "shared memory per CTA " + ", ".join(f"{k} {v} B" for k, v in smem.items()))
     return out
+
+
+def riccati_wide(B: int, N: int, shapes, device, tag: str) -> dict:
+    """K2+K3 in float32 at a batch B past the 256-thread build's residency,
+    through the wrapper: the launch must take the 128-thread build (one
+    more ``wide_launches``), agree with plain at phase 3's bar (1e-3
+    relative, on the card in float64), and is timed beside the 256-thread
+    build on the same inputs and against its bound."""
+    nx, nu, ne = shapes
+    resident, sms = riccati_kernel.residency(nx, nu, ne, torch.float32, device)
+    require(B > resident[256] * sms, f"B={B} is within the 256-thread build's residency {resident[256]} x {sms}")
+    nodes, masks, dx0 = random_lqr(B, N, nx, nu, ne, 9, device, torch.float32)
+    regs = _regs(torch.float32)
+    before = riccati_kernel.riccati_solve.wide_launches
+    got = riccati_kernel.riccati_solve_cuda(nodes, masks, dx0, *regs)
+    moved = riccati_kernel.riccati_solve.wide_launches - before
+    ref = riccati_plain(nodes, masks, dx0, regs)
+    errs = {n: float((g.double() - r.double()).abs().max()) / max(1.0, float(r.double().abs().max()))
+            for n, g, r in zip(("K", "k", "dx", "du"), got, ref)}
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del got, ref
+    require(moved == 1, f"B={B} took the 256-thread build (wide_launches moved by {moved}; resident {resident})")
+    require(finite and max(errs.values()) <= 1e-3, f"riccati kernel's 128-thread build disagrees at B={B}: {errs}")
+    before = riccati_kernel.riccati_solve.wide_launches
+    wide_ms = cuda_time_ms(lambda: riccati_kernel.riccati_solve_cuda(nodes, masks, dx0, *regs), 10)
+    narrow_ms = cuda_time_ms(lambda: riccati_kernel._launch(nodes, masks, dx0, *regs, 256), 10)
+    timed_wide = riccati_kernel.riccati_solve.wide_launches - before
+    require(timed_wide == 11, f"the timed wrapper launches took the 256-thread build ({timed_wide} of 11 wide)")
+    s = 4
+    stage_in = 2 * nx * nx + 2 * nx * nu + nu * nu + ne * nx + ne * nu + 2 * nx + nu + 2 * ne
+    stage_out = nu * nx + 2 * nu
+    b = bound(s * (B * N * (stage_in + stage_out) + B * nx + B * (N + 1) * nx), k23_ops(B, N, nx, nu, ne))
+    res = {"batch": B, "resident_ctas_per_sm": resident, "sm_count": sms, "max_rel_err": max(errs.values()),
+           "ms": wide_ms, "ms_256t": narrow_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "roofline_pct": 100.0 * b["bound_ms"] / wide_ms, "wide_launches": moved + timed_wide}
+    print(f"[{tag}] float32 B={B} N={N} (past the 256-thread build's {resident[256]} x {sms} resident; "
+          f"128-thread build {resident[128]} CTAs per SM): max rel err " + " ".join(f"{n} {v:.2e}" for n, v in errs.items())
+          + f" (bar 1e-3); 128-thread build {wide_ms:.3f} ms ({res['roofline_pct']:.1f}% of its bound "
+          f"{b['bound_ms']:.4f} ms, {b['bound_by']}), 256-thread build {narrow_ms:.3f} ms; "
+          f"wide_launches {res['wide_launches']}")
+    return res
 
 
 def merit_instances(info, M: int, seed: int, device, dtype, x_stand=None):
@@ -1134,7 +1189,7 @@ def phase_g1(device, libs, iface, robot):
           f"{circuit_static(model, info)[0]['GROUP']} lanes")
     x_stand = iface.initial_state
     wts = (iface.Q.cpu().numpy(), iface.R.cpu().numpy())
-    out = {"riccati": phase_riccati(device, libs["riccati_g1"], (nx, nu, 16), "10 g1 riccati"),
+    out = {"riccati": phase_riccati(device, libs["riccati_g1"], (nx, nu, 16), "10 g1 riccati", wide_batch=4096),
            "merit": phase_merit(model, info, device, libs["merit_g1"], x_stand, "10 g1 merit"),
            "linearize": phase_linearize(model, info, device, libs["linearize_g1"], x_stand, wts, "10 g1 linearize")}
     # float64 B=8: production vs all plain, from the front end's references
@@ -3095,7 +3150,8 @@ def main():
              launches_per_cli_replan=per_cli["linearize"], launches_per_meshed_solve=per_meshed["linearize"]),
         dict(kernel_entry("riccati sweep + rollout (K2 backward, fused K3 rollout of pallas_riccati.py:356)",
                           src + "riccati.cu", "bipedal_control_tpu/ops/pallas_riccati.py:281", counts["riccati"], ric),
-             b1_ms=ric["b1_ms"], registers=ric["registers"], g1=g1_entry(g1_res["riccati"], g1_counts["riccati"]),
+             b1_ms=ric["b1_ms"], registers=ric["registers"],
+             g1=dict(g1_entry(g1_res["riccati"], g1_counts["riccati"]), b4096=g1_res["riccati"]["wide"]),
              launches_per_controller_replan=per_replan["riccati"],
              launches_per_cascade_replan=per_cascade["launches_per_replan"]["riccati"],
              launches_per_cascade_tick=per_cascade["launches_per_tick"]["riccati"],

@@ -156,6 +156,11 @@ def _lqr(rng, B, N, nx, nu, ne, device, dtype, stable=False, masked_stage=None):
     return nodes, T(mask), T(0.1 * rng.normal(size=(B, nx)))
 
 
+# a batch just past what the 256-thread Riccati build holds resident on the
+# card (read from the wrapper in the test), a partly filled last wave
+PAST_RESIDENT = "past_resident"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "B,N,nx,nu,ne,dtype,masked_stage",
@@ -166,18 +171,35 @@ def _lqr(rng, B, N, nx, nu, ne, device, dtype, stable=False, masked_stage=None):
         (2, 12, 22, 22, 16, torch.float64, 5),  # one stage with every constraint row masked
         (3, 67, 24, 24, 16, torch.float64, None),  # G1's shapes (NKP = 40)
         (1, 67, 24, 24, 16, torch.float32, None),
+        (PAST_RESIDENT, 8, 24, 24, 16, torch.float32, None),  # G1's shapes where the wrapper may take 128 threads
+        (PAST_RESIDENT, 8, 24, 24, 16, torch.float64, None),
     ],
 )
 def test_riccati_kernel_matches_plain(cuda, B, N, nx, nu, ne, dtype, masked_stage):
     """float64 at atol 1e-9; float32 at 1e-3 relative to max(1, max|ref|)
     (chip_smoke.py phase 3's bar: two float32 sweeps in different summation
-    orders agree to ~1e-5, a wrong entry of K is O(0.1))."""
+    orders agree to ~1e-5, a wrong entry of K is O(0.1)).  The launch goes to
+    the build the wrapper's rule picks (``wide_launches`` counts the
+    128-thread one): the 256-thread build at B = 1, the 128-thread one past
+    the 256-thread build's residency in float32 at G1's shapes (4 CTAs per
+    SM against 2); float64 has no 128-thread build."""
+    resident, sms = riccati_kernel.residency(nx, nu, ne, dtype, cuda)
+    if B == PAST_RESIDENT:
+        B = resident[256] * sms + 7
+    wide = riccati_kernel.choose_threads(B, resident, sms) == 128
+    if B == 1:
+        assert not wide
+    if B > resident[256] * sms and dtype == torch.float32 and (nx, nu, ne) == (24, 24, 16):
+        assert resident == {256: 2, 128: 4} and wide
+    if dtype == torch.float64:  # the 128-thread build is float32's alone
+        assert resident[128] == 0 and not wide
     nodes, masks, dx0 = _lqr(np.random.default_rng(0), B, N, nx, nu, ne, cuda, dtype,
                              stable=N > 6, masked_stage=masked_stage)
     regs = _regs(dtype)
-    before = riccati_kernel.riccati_solve.launches
+    before = riccati_kernel.riccati_solve.launches, riccati_kernel.riccati_solve.wide_launches
     got = riccati_kernel.riccati_solve(nodes, masks, dx0, *regs)
-    assert riccati_kernel.riccati_solve.launches == before + 1
+    assert riccati_kernel.riccati_solve.launches == before[0] + 1
+    assert riccati_kernel.riccati_solve.wide_launches == before[1] + wide
     want = riccati_plain(nodes, masks, dx0, regs)
     for name, g, w in zip(("K", "k", "dx", "du"), got, want):
         if dtype == torch.float64:
@@ -185,6 +207,30 @@ def test_riccati_kernel_matches_plain(cuda, B, N, nx, nu, ne, dtype, masked_stag
         else:
             g, w = g.double(), w.double()
             assert float((g - w).abs().max()) / max(1.0, float(w.abs().max())) <= 1e-3, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked_stage", [None, 5])
+@pytest.mark.parametrize("shapes", [(24, 24, 16), (22, 22, 16)])
+def test_riccati_builds_agree_bitwise(cuda, shapes, masked_stage):
+    """The 256- and 128-thread builds change only which thread computes an
+    element, not its operations or their order, so they give the same bits
+    (float32, the 128-thread build's one dtype; G1's shapes; H1's, whose
+    stage pieces of 88 bytes go by element-sized copies; and with one stage
+    whose constraint rows are all masked, the near-singular regularised KKT)."""
+    nodes, masks, dx0 = _lqr(np.random.default_rng(3), 3, 67, *shapes, cuda, torch.float32, stable=True,
+                             masked_stage=masked_stage)
+    regs = _regs(torch.float32)
+    before = riccati_kernel.riccati_solve.launches, riccati_kernel.riccati_solve.wide_launches
+    a = riccati_kernel._launch(nodes, masks, dx0, *regs, 256)
+    b = riccati_kernel._launch(nodes, masks, dx0, *regs, 128)
+    torch.cuda.synchronize()
+    # every launch is counted where it is made, whichever entry made it
+    assert (riccati_kernel.riccati_solve.launches, riccati_kernel.riccati_solve.wide_launches) == \
+        (before[0] + 2, before[1] + 1)
+    for name, x, y in zip(("K", "k", "dx", "du"), a, b):
+        assert bool(torch.isfinite(x).all()), name
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.gpu

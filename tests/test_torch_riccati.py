@@ -76,3 +76,38 @@ def test_riccati_kernel_build_is_keyed_by_stage_shapes(monkeypatch):
     assert requests[0][2] == {"RICCATI_NX": "22", "RICCATI_NU": "22", "RICCATI_NE": "16"}
     assert requests[1][2] == {"RICCATI_NX": "7", "RICCATI_NU": "5", "RICCATI_NE": "3"}
     assert a is not b and a.lib.riccati_solve_f32.argtypes is not None
+
+
+# (batch, resident CTAs per SM of the 256- and 128-thread builds, the build
+# the wrapper takes) on a card of 132 SMs; G1's float32 builds hold 2 and 4
+_CHOICE_CASES = {
+    "b1": (1, {256: 2, 128: 4}, 256),
+    "at_threshold": (264, {256: 2, 128: 4}, 256),
+    "above_threshold": (265, {256: 2, 128: 4}, 128),
+    "b4096": (4096, {256: 2, 128: 4}, 128),
+    "wide_holds_no_more": (4096, {256: 2, 128: 2}, 256),
+    "no_wide_build": (4096, {256: 2, 128: 0}, 256),  # float64: the library has no 128-thread build
+}
+
+
+@pytest.mark.parametrize("case", [*_CHOICE_CASES, "profiler_name"])
+def test_riccati_build_choice(case):
+    """The wrapper's choice between the kernel's two builds is a function of
+    the batch, each build's residency and the SM count alone: the 128-thread
+    build only above what the 256-thread build holds resident, and only if
+    it holds more per SM.  Both builds keep the kernel's name, so the
+    benchmark's profiler readers (benchmark/core.py's KERNELS pattern) find
+    either."""
+    from bipedal_control_tpu_torch.ops import riccati_kernel
+
+    if case == "profiler_name":
+        from benchmark.core import KERNELS, TraceReading
+
+        names = [f"void (anonymous namespace)::riccati_kernel<float, {t}>((anonymous namespace)::StageInputs<float>, "
+                 "float const*, float*, float*, float*, float*, int, float, float)" for t in riccati_kernel.BUILDS]
+        trace = TraceReading(device_ops=[(n, 0.0, 2.0) for n in names], busy_s=4e-6, window_s=4e-6, idle_by_host={})
+        assert trace.count_of(KERNELS["K23"]) == 2
+        assert trace.seconds_of(KERNELS["K23"]) == pytest.approx(4e-6)
+        return
+    batch, resident, want = _CHOICE_CASES[case]
+    assert riccati_kernel.choose_threads(batch, resident, 132) == want
